@@ -1,0 +1,44 @@
+"""Carry state across from the reference package, through numpy.
+
+The port imports nothing of ``repro``; a caller who holds a ``repro``
+BVH or ray batch passes its arrays as numpy and gets the port's records
+back.  With these, traversal parity can be tested apart from builder
+parity: both packages traverse the very same tree.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.bvh import BVH4
+from .core.device import resolve_device
+from .core.types import Ray, Triangle
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
+
+
+def _i32(x, device) -> torch.Tensor:
+    return torch.as_tensor(np.array(x, dtype=np.int32), device=device)
+
+
+def bvh_from_numpy(node_lo, node_hi, leaf_tri, a, b, c, leaf_perm, *,
+                   device=None) -> BVH4:
+    """A ``repro`` ``BVH4``'s arrays (as numpy) -> the port's ``BVH4``."""
+    device = resolve_device(device)
+    return BVH4(node_lo=_f32(node_lo, device), node_hi=_f32(node_hi, device),
+                leaf_tri=_i32(leaf_tri, device),
+                triangles=Triangle(_f32(a, device), _f32(b, device),
+                                   _f32(c, device)),
+                leaf_perm=_i32(leaf_perm, device))
+
+
+def rays_from_numpy(origin, direction, inv, extent, kx, ky, kz, shear, *,
+                    device=None) -> Ray:
+    """A ``repro`` ``Ray``'s fields (as numpy) -> the port's ``Ray``."""
+    device = resolve_device(device)
+    return Ray(origin=_f32(origin, device), direction=_f32(direction, device),
+               inv=_f32(inv, device), extent=_f32(extent, device),
+               kx=_i32(kx, device), ky=_i32(ky, device), kz=_i32(kz, device),
+               shear=_f32(shear, device))

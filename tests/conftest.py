@@ -74,3 +74,9 @@ def run_with_devices(code: str, n_devices: int = 8, timeout: int = 600) -> str:
 @pytest.fixture
 def multidev():
     return run_with_devices
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA GPU; skipped without one "
+        "(run: PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py)")
