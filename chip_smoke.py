@@ -16,12 +16,15 @@ Phases (any failure exits non-zero and prints no result line):
    ``GOLDEN_T_ULPS``;
 5. the main path at full size: a 1,048,576-triangle clustered soup built
    by the port's LBVH on the card, 1024 x 1024 pinhole primary rays
-   (closest), a light-facing test of every hit (OpTriangle), and shadow
-   rays from every hit point toward one point light; timings, jobs per
-   ray, and the fused kernel held against ``trace_wavefront`` on the card
-   on a 65,536-ray subset;
-6. one JSON ``kernels`` line (launches on the main path, times, bounds),
-   then the ``{"ok": true, "device": ...}`` line.
+   (closest), the primary rays against four box-shaped lights that are
+   not in the tree (OpQuadbox), a light-facing test of every hit
+   (OpTriangle), and shadow rays from every hit point toward one point
+   light; timings and jobs per ray.  The frame's closest and shadow
+   traces are held against ``trace_wavefront`` on the card on every ray;
+6. each kernel timed at the main path's shapes on the main path's own
+   inputs, its output held bit-equal to its plain version's on those
+   inputs; one JSON ``kernels`` line (launches on the main path, times,
+   errors, bounds), then the ``{"ok": true, "device": ...}`` line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -44,8 +47,6 @@ SEED = 20240906
 N_JOBS = 1 << 20  # stage-kernel comparison size (phases 2 and 3)
 N_CLUSTERS, PER_CLUSTER = 1024, 1024  # 1,048,576 triangles
 RES = 1024  # primary rays: RES x RES pinhole camera
-SUBSET = 1 << 16  # rays held against trace_wavefront on the card
-WIDE_FRAME = 1.5  # field of the second framing, relative to the scene box
 TIMED_REPS = 5
 #: the goldens were traced by the reference on a CPU, where XLA contracts
 #: mul -> add into FMAs inside jitted code; t_num and t_denom each carry
@@ -59,7 +60,9 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
 # bytes each kernel must move per job, and f32 operations per job
 RAYBOX_BYTES, RAYBOX_OPS = (9 + 24 + 12) * 4, 4 * (6 + 6 + 6 + 1) + 5
-RAYTRI_BYTES, RAYTRI_OPS = (18 + 3 + 3) * 4, 9 + 9 + 6 + 6 + 3 + 3 + 4 + 5
+#: OpTriangle reads org, shear, k (i32) and three vertices, 6 rows of 3
+#: words, and writes t_num, t_denom and hit
+RAYTRI_BYTES, RAYTRI_OPS = (18 + 3) * 4, 9 + 9 + 6 + 6 + 3 + 3 + 4 + 5
 #: fused kernel: a ray reads 16 operand floats and writes 5 words; a box
 #: job reads 4 child boxes; a triangle job reads a leaf slot and 9 floats
 TRAV_RAY_BYTES, TRAV_QB_BYTES, TRAV_TRI_BYTES = 84, 96, 40
@@ -98,8 +101,9 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def event_ms(fn, reps: int = TIMED_REPS) -> float:
-    """Median device time of ``fn`` over ``reps`` runs after one warm-up."""
+def event_ms(fn, reps: int = TIMED_REPS):
+    """Median device time of ``fn`` over ``reps`` runs after one warm-up,
+    and the output of the last run."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -108,11 +112,30 @@ def event_ms(fn, reps: int = TIMED_REPS) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        out = fn()
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return statistics.median(times), out
+
+
+def same_bits(label: str, got, ref) -> float:
+    """Fail unless every field of ``got`` is bit-equal to ``ref``'s; return
+    the largest |got - ref| over the float fields' finite values."""
+    import torch
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got, ref)):
+        name = ref._fields[i] if hasattr(ref, "_fields") else str(i)
+        if a.dtype == torch.float32:
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if fin.any():
+                err = max(err, float((a[fin] - b[fin]).abs().max()))
+            if not torch.equal(bits(a), bits(b)):
+                fail(f"{label}: {name} differs in "
+                     f"{int((bits(a) != bits(b)).sum())} values")
+        elif not torch.equal(a, b):
+            fail(f"{label}: {name} differs in {int((a != b).sum())} values")
+    return err
 
 
 def wall_ms(fn, reps: int = TIMED_REPS) -> float:
@@ -232,15 +255,14 @@ def phase_goldens(torch):
         f"FMA contraction)")
 
 
-def camera_rays(scene, widen: float = 1.0):
-    """RES x RES pinhole rays from in front of the scene box, looking +z;
-    ``widen`` > 1 frames a border around the scene that rays miss."""
+def camera_rays(scene):
+    """RES x RES pinhole rays from in front of the scene box, looking +z."""
     lo = scene.bvh.node_lo[0].cpu().numpy()
     hi = scene.bvh.node_hi[0].cpu().numpy()
     center = 0.5 * (lo + hi)
     eye = np.asarray([center[0], center[1], lo[2] - 2.0 * (hi[2] - lo[2])],
                      np.float32)
-    half = 0.5 * widen * float(max(hi[0] - lo[0], hi[1] - lo[1]))
+    half = 0.5 * float(max(hi[0] - lo[0], hi[1] - lo[1]))
     dist = float(center[2] - eye[2])
     s = np.linspace(-1.0, 1.0, RES, dtype=np.float32) * half / dist
     ys, xs = np.meshgrid(s[::-1], s, indexing="ij")
@@ -250,22 +272,40 @@ def camera_rays(scene, widen: float = 1.0):
     return org, dirs
 
 
+def emitter_boxes(scene, n: int):
+    """Four box-shaped lights (not in the tree) between the camera and the
+    scene, in a 2 x 2 grid inside the frame; as a :class:`Box` of (n, 4, 3)
+    that gives every ray the same four boxes."""
+    import torch
+    from repro_torch.core.types import Box
+    lo, hi = scene.bvh.node_lo[0], scene.bvh.node_hi[0]
+    span = hi - lo
+    grid = torch.tensor([[-1.0, -1.0], [1.0, -1.0], [-1.0, 1.0], [1.0, 1.0]],
+                        device=lo.device)
+    c = (0.5 * (lo + hi)).expand(4, 3).clone()
+    c[:, :2] += 0.25 * grid * span[:2]
+    c[:, 2] = lo[2] - 0.25 * span[2]
+    half = span * torch.tensor([0.04, 0.04, 0.02], device=lo.device)
+    return Box((c - half).expand(n, 4, 3), (c + half).expand(n, 4, 3))
+
+
 def phase_main_path(torch):
-    from repro_torch.api import Ray, Scene, make_ray
+    from repro_torch.api import Scene, make_ray
     from repro_torch.core.build.quality import clustered_soup
     from repro_torch.core.bvh import num_nodes
     from repro_torch.core.types import Triangle
     from repro_torch.core.wavefront import trace_wavefront
-    from repro_torch.kernels import nvcc
-    from repro_torch.kernels.ops import ray_triangle_kernel
-    from repro_torch.kernels.traverse import (pack_bvh, root_entry_mask,
-                                              traverse_packed, traverse_scene)
+    from repro_torch.kernels import nvcc, raybox as rb, raytri as rt
+    from repro_torch.kernels.ops import (ray_box_kernel, ray_box_operands,
+                                         ray_triangle_kernel,
+                                         ray_triangle_operands)
+    from repro_torch.kernels.traverse import pack_bvh, traverse_packed
 
     rng = np.random.default_rng(SEED)
     tri = clustered_soup(rng, N_CLUSTERS, PER_CLUSTER, device="cuda")
     light = torch.tensor([9.0, 11.0, -13.0], device="cuda")
 
-    def frame(stages: dict | None = None):
+    def frame(stages: dict | None = None) -> dict:
         """The main path a user runs for one frame.  With ``stages``, each
         stage ends in a synchronize and its host time (ms) is recorded."""
         clock = [time.perf_counter()]
@@ -285,16 +325,26 @@ def phase_main_path(torch):
         mark("camera rays")
         hits = engine.trace(primary)  # closest
         mark("primary trace")
+        # box-shaped lights outside the tree: OpQuadbox of every camera ray
+        # against the four; the nearest one hit in front of the surface
+        # shows on the pixel
+        emitters = emitter_boxes(scene, primary.origin.shape[0])
+        seen = ray_box_kernel(primary, emitters)
+        t_seen = torch.where(seen.is_intersect, seen.tmin, float("inf"))
+        near, slot = t_seen.min(dim=1)
+        emitter = torch.where(near < hits.t,
+                              seen.box_index.gather(1, slot[:, None])[:, 0], -1)
+        mark("emitters")
         idx = torch.nonzero(hits.hit).squeeze(1)
         p = primary.origin[idx] + hits.t[idx, None] * primary.direction[idx]
         hit_tri = hits.tri_index[idx].long()
-        corners = [v[hit_tri] for v in scene.bvh.triangles]
-        centroid = (corners[0] + corners[1] + corners[2]) / 3.0
+        corners = Triangle(*[v[hit_tri] for v in scene.bvh.triangles])
+        centroid = (corners.a + corners.b + corners.c) / 3.0
         # light-facing test: OpTriangle from the light toward the hit
         # triangle's centroid hits its front face iff the light sees it
         to_tri = make_ray(light.expand_as(centroid), centroid - light,
                           device="cuda")
-        facing = ray_triangle_kernel(to_tri, Triangle(*corners)).hit
+        facing = ray_triangle_kernel(to_tri, corners).hit
         mark("light-facing test")
         to_light = light - p
         dist = torch.linalg.vector_norm(to_light, dim=1)
@@ -302,20 +352,27 @@ def phase_main_path(torch):
         mark("shadow rays")
         occluded = engine.trace(shadow, "shadow")
         mark("shadow trace")
-        lit = facing & ~occluded.hit
+        image = torch.zeros(hits.hit.shape, device="cuda")
+        image[idx] = (facing & ~occluded.hit).float()
+        image = torch.where(emitter >= 0, 2.0, image)
         mark("shade")
-        return scene, engine, primary, hits, shadow, occluded, lit
+        return dict(scene=scene, engine=engine, primary=primary, hits=hits,
+                    emitters=emitters, emitter=emitter, to_tri=to_tri,
+                    corners=corners, shadow=shadow, occluded=occluded,
+                    image=image)
 
     # ---- one counted drive of the main path --------------------------------
     torch.cuda.synchronize()
     nvcc.reset_launches()
-    scene, engine, primary, hits, shadow, occluded, lit = frame()
+    fr = frame()
     torch.cuda.synchronize()
     launches = nvcc.launch_counts()
     for name in ("raybox", "raytri", "traverse"):
         if launches.get(name, 0) < 1:
             fail(f"the main path launched no {name} kernel ({launches})")
 
+    scene, engine, primary, hits = fr["scene"], fr["engine"], fr["primary"], fr["hits"]
+    shadow, occluded = fr["shadow"], fr["occluded"]
     n_tri = scene.num_triangles
     if n_tri != N_CLUSTERS * PER_CLUSTER or scene.depth != 10 or \
             scene.bvh.node_lo.shape[0] != num_nodes(10):
@@ -332,41 +389,32 @@ def phase_main_path(torch):
         if bool(rec.stack_overflow.any()):
             fail(f"{name} trace: stack overflow at depth {scene.depth}")
     n_hit, n_shadow = int(hits.hit.sum()), shadow.origin.shape[0]
-    if n_hit == 0 or n_hit == RES * RES:
-        fail(f"degenerate frame: {n_hit} primary hits")
+    n_emit = int((fr["emitter"] >= 0).sum())
+    if n_hit == 0 or n_hit == RES * RES or n_emit == 0:
+        fail(f"degenerate frame: {n_hit} primary hits, {n_emit} emitter pixels")
+    if fr["image"].shape != (RES * RES,) or not bool(torch.isfinite(fr["image"]).all()):
+        fail("malformed image")
     say(f"phase 5 main path: {n_tri} triangles, LBVH depth {scene.depth}, "
         f"{bvh.node_lo.shape[0]} nodes, {tree_bytes / 1e6:.1f} MB of nodes + "
         f"leaf table + triangles on the card")
-    say(f"phase 5 frame: {RES * RES} primary rays, {n_hit} hits, "
-        f"{int(occluded.hit.sum())} of {n_shadow} shadow rays occluded, "
-        f"{int(lit.sum())} hits lit")
+    say(f"phase 5 frame: {RES * RES} primary rays, {n_hit} hits, {n_emit} "
+        f"pixels show a box light, {int(occluded.hit.sum())} of {n_shadow} "
+        f"shadow rays occluded, {int((fr['image'] == 1).sum())} hits lit")
 
-    # ---- the fused kernel held against its plain version on the card -------
-    sub = torch.arange(0, RES * RES, RES * RES // SUBSET, device="cuda")
-    sub_sh = torch.arange(0, n_shadow, max(1, n_shadow // SUBSET),
-                          device="cuda")[:SUBSET]
+    # ---- the frame's traces held against trace_wavefront on every ray ------
     packed = pack_bvh(bvh)
-    max_err = 0.0
-    for name, rays, idx, rt in (("closest", primary, sub, "closest"),
-                                ("shadow", shadow, sub_sh, "shadow")):
-        r = Ray(*[f[idx] for f in rays])
-        ref = trace_wavefront(bvh, r, scene.depth, ray_type=rt)
-        for label, got in (("engine", engine.trace(r, rt, backend="cuda")),
-                           ("fused kernel", traverse_packed(packed, r, scene.depth,
-                                                            ray_type=rt))):
-            for f in ref._fields:
-                a, b = getattr(got, f), getattr(ref, f)
-                same = torch.equal(bits(a), bits(b)) if a.dtype == torch.float32 \
-                    else torch.equal(a, b)
-                if not same:
-                    fail(f"{label} differs from trace_wavefront on the {name} "
-                         f"subset in {f}")
-        fin = torch.isfinite(ref.t)
-        max_err = max(max_err, float((got.t[fin] - ref.t[fin]).abs().max())
-                      if fin.any() else 0.0)
-        say(f"phase 5 check: {idx.numel()} {name} rays: engine and fused "
-            f"kernel bit-equal to trace_wavefront on every field "
-            f"(rounds {int(ref.rounds)})")
+    trav_ms, rec_k = event_ms(lambda: traverse_packed(packed, primary, scene.depth))
+    trav_plain_ms, rec_p = event_ms(
+        lambda: trace_wavefront(bvh, primary, scene.depth), reps=3)
+    trav_err = same_bits(f"fused kernel vs trace_wavefront on all {RES * RES} "
+                         f"primary rays", rec_k, rec_p)
+    same_bits("the frame's closest trace vs trace_wavefront", hits, rec_p)
+    sh_ref = trace_wavefront(bvh, shadow, scene.depth, ray_type="shadow")
+    same_bits(f"the frame's shadow trace vs trace_wavefront on all {n_shadow} "
+              f"shadow rays", occluded, sh_ref)
+    say(f"phase 5 check: the frame's closest trace ({RES * RES} rays, rounds "
+        f"{int(rec_p.rounds)}) and shadow trace ({n_shadow} rays, rounds "
+        f"{int(sh_ref.rounds)}) bit-equal to trace_wavefront on every field")
 
     # ---- timings at the main-path shapes -----------------------------------
     build_ms = wall_ms(lambda: Scene.from_triangles(tri, device="cuda"))
@@ -374,10 +422,10 @@ def phase_main_path(torch):
         "closest": wall_ms(lambda: engine.trace(primary)),
         "shadow": wall_ms(lambda: engine.trace(shadow, "shadow")),
     }
-    for rt, rec, rays in (("closest", hits, primary), ("shadow", occluded, shadow)):
+    for rtype, rec, rays in (("closest", hits, primary), ("shadow", occluded, shadow)):
         n = rays.origin.shape[0]
-        say(f"phase 5 {rt}: {n} rays, trace {trace_ms[rt]:.3f} ms (median of "
-            f"{TIMED_REPS}), {n / trace_ms[rt] * 1e3:.4g} rays/s, "
+        say(f"phase 5 {rtype}: {n} rays, trace {trace_ms[rtype]:.3f} ms (median "
+            f"of {TIMED_REPS}), {n / trace_ms[rtype] * 1e3:.4g} rays/s, "
             f"quadbox_jobs/ray {rec.quadbox_jobs.double().mean().item():.3f}, "
             f"triangle_jobs/ray {rec.triangle_jobs.double().mean().item():.3f}, "
             f"rounds {int(rec.rounds)}")
@@ -385,89 +433,54 @@ def phase_main_path(torch):
         f"card, median of {TIMED_REPS})")
     frame_ms = wall_ms(frame, reps=3)
     say(f"phase 5 frame: {frame_ms:.3f} ms end to end (build, camera rays, "
-        f"primary trace, light-facing test, shadow trace; median of 3)")
+        f"primary trace, box lights, light-facing test, shadow trace, shade; "
+        f"median of 3)")
     stages: dict = {}
     frame(stages)
     say("phase 5 frame stages (ms, each ending in a synchronize): "
         + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
 
-    # the scene-entry pass on a workload that exercises its compaction: a
-    # wider frame whose border rays miss the root's four children
-    wide = make_ray(*camera_rays(scene, widen=WIDE_FRAME), device="cuda")
-    miss = 1.0 - float(root_entry_mask(packed, wide).float().mean())
-    with_pass = traverse_scene(packed, wide, scene.depth)
-    alone = traverse_packed(packed, wide, scene.depth)
-    for f in alone._fields:
-        a, b = getattr(with_pass, f), getattr(alone, f)
-        if not (torch.equal(bits(a), bits(b)) if a.dtype == torch.float32
-                else torch.equal(a, b)):
-            fail(f"entry pass changes {f} on the wide frame")
-    pass_ms = wall_ms(lambda: traverse_scene(packed, wide, scene.depth))
-    alone_ms = wall_ms(lambda: traverse_packed(packed, wide, scene.depth))
-    say(f"phase 5 entry pass: wide frame ({WIDE_FRAME}x), {miss:.4f} of "
-        f"{RES * RES} rays miss the root's children: entry pass + compacted "
-        f"traversal {pass_ms:.3f} ms, fused kernel on all rays {alone_ms:.3f} "
-        f"ms (median of {TIMED_REPS}; results bit-equal)")
-
-    # kernel-level times, each at the shapes the main path gave it
-    live = torch.nonzero(root_entry_mask(packed, primary)).squeeze(1)
-    live_rays = Ray(*[f[live] for f in primary])
-    rec_live = traverse_packed(packed, live_rays, scene.depth)
-    trav_ms = event_ms(lambda: traverse_packed(packed, live_rays, scene.depth))
-    trav_plain_ms = event_ms(lambda: trace_wavefront(bvh, live_rays, scene.depth),
-                             reps=3)
-    n_live = live.numel()
-    sum_qb = float(rec_live.quadbox_jobs.double().sum())
-    sum_tri = float(rec_live.triangle_jobs.double().sum())
-    trav_bound = bound_ms(n_live * TRAV_RAY_BYTES + sum_qb * TRAV_QB_BYTES
+    # ---- phase 6: each kernel on the main path's own inputs ----------------
+    n_rays = RES * RES
+    sum_qb = float(rec_k.quadbox_jobs.double().sum())
+    sum_tri = float(rec_k.triangle_jobs.double().sum())
+    trav_bound = bound_ms(n_rays * TRAV_RAY_BYTES + sum_qb * TRAV_QB_BYTES
                           + sum_tri * TRAV_TRI_BYTES,
                           sum_qb * RAYBOX_OPS + sum_tri * TRAV_TRI_OPS)
-    say(f"phase 6 traverse: {n_live} primary rays enter the tree; kernel "
-        f"{trav_ms:.3f} ms, bound {trav_bound[0]:.3f} ms ({trav_bound[1]}; "
-        f"an upper estimate of traffic: every job's bytes from HBM, which "
-        f"L2 can cut)")
+    say(f"phase 6 traverse: {n_rays} primary rays; kernel {trav_ms:.3f} ms, "
+        f"bound {trav_bound[0]:.3f} ms ({trav_bound[1]}; an upper estimate "
+        f"of traffic: every job's bytes from HBM, which L2 can cut)")
 
-    from repro_torch.kernels import raybox as rb, raytri as rt_mod
-    from repro_torch.kernels.common import LANES, ceil_to, pad_cols
-    n_pad = ceil_to(RES * RES, LANES)
-    root_lo = packed.nlo[:, 1:5].T.reshape(1, 12).expand(n_pad, 12).T.contiguous()
-    root_hi = packed.nhi[:, 1:5].T.reshape(1, 12).expand(n_pad, 12).T.contiguous()
-    rb_args = (pad_cols(primary.origin.T, n_pad).contiguous(),
-               pad_cols(primary.inv.T, n_pad, 1.0).contiguous(),
-               pad_cols(torch.signbit(primary.direction).float().T, n_pad).contiguous(),
-               root_lo, root_hi)
-    rb_ms = event_ms(lambda: rb.raybox(*rb_args))
-    rb_plain_ms = event_ms(lambda: rb.raybox_plain(*rb_args))
-    n_rt = ceil_to(n_hit, LANES)
-    idx = torch.nonzero(hits.hit).squeeze(1)
-    hit_tri = hits.tri_index[idx].long()
-    corners = [pad_cols(v[hit_tri].T, n_rt).contiguous() for v in bvh.triangles]
-    centroid = (corners[0] + corners[1] + corners[2]) / 3.0
-    to_tri = make_ray(light[:, None].expand_as(centroid).T,
-                      (centroid - light[:, None]).T, device="cuda")
-    rt_args = (to_tri.origin.T.contiguous(), to_tri.shear.T.contiguous(),
-               torch.stack([to_tri.kx, to_tri.ky, to_tri.kz]).contiguous(),
-               *corners)
-    rt_ms = event_ms(lambda: rt_mod.raytri(*rt_args))
-    rt_plain_ms = event_ms(lambda: rt_mod.raytri_plain(*rt_args))
+    rb_args = ray_box_operands(primary, fr["emitters"])
+    rb_ms, rb_k = event_ms(lambda: rb.raybox(*rb_args))
+    rb_plain_ms, rb_p = event_ms(lambda: rb.raybox_plain(*rb_args))
+    rb_err = same_bits("OpQuadbox kernel vs ray_box_test on the frame's "
+                       "box-light jobs", rb_k, rb_p)
+    rt_args = ray_triangle_operands(fr["to_tri"], fr["corners"])
+    rt_ms, rt_k = event_ms(lambda: rt.raytri(*rt_args))
+    rt_plain_ms, rt_p = event_ms(lambda: rt.raytri_plain(*rt_args))
+    rt_err = same_bits("OpTriangle kernel vs ray_triangle_test on the frame's "
+                       "light-facing jobs", rt_k, rt_p)
+    n_rb, n_rt = rb_args[0].shape[1], rt_args[0].shape[1]
+    say(f"phase 6 stage kernels on the frame's inputs: OpQuadbox {n_rb} jobs, "
+        f"OpTriangle {n_rt} jobs, each bit-equal to its plain version")
 
-    def row(name, source, replaces, ms, plain_ms, bound):
+    def row(name, source, replaces, ms, plain_ms, err, bound):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches[name],
-                "max_abs_err": 0.0 if name != "traverse" else max_err,
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound[0],
-                "bound_by": bound[1], "library_ms": None}
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
 
     return [
         row("raybox", "src/repro_torch/csrc/raybox.cu",
-            "src/repro/kernels/raybox.py:22", rb_ms, rb_plain_ms,
-            bound_ms(n_pad * RAYBOX_BYTES, n_pad * RAYBOX_OPS)),
+            "src/repro/kernels/raybox.py:22", rb_ms, rb_plain_ms, rb_err,
+            bound_ms(n_rb * RAYBOX_BYTES, n_rb * RAYBOX_OPS)),
         row("raytri", "src/repro_torch/csrc/raytri.cu",
-            "src/repro/kernels/raytri.py:19", rt_ms, rt_plain_ms,
+            "src/repro/kernels/raytri.py:19", rt_ms, rt_plain_ms, rt_err,
             bound_ms(n_rt * RAYTRI_BYTES, n_rt * RAYTRI_OPS)),
         row("traverse", "src/repro_torch/csrc/traverse.cu",
             "src/repro/kernels/traverse.py:95", trav_ms, trav_plain_ms,
-            trav_bound),
+            trav_err, trav_bound),
     ]
 
 

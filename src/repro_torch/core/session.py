@@ -6,10 +6,10 @@ Trace backends are pluggable and return the same :class:`TraceResult`:
 
 * ``"wavefront"`` -- the plain batch-level engine
   (``core/wavefront.trace_wavefront``), on any device;
-* ``"cuda"`` -- the scene-entry OpQuadbox pass and the fused traversal
-  kernel (``kernels/traverse.traverse_scene``; ``csrc/raybox.cu``,
-  ``csrc/traverse.cu``), whose ``prepare`` hook packs the tree once per
-  scene version and whose batches are padded to whole 128-ray blocks;
+* ``"cuda"`` -- the fused traversal kernel (``kernels/traverse.
+  traverse_packed``; ``csrc/traverse.cu``), whose ``prepare`` hook packs
+  the tree once per scene version and whose batches are padded to whole
+  128-ray blocks;
 * ``"auto"`` -- ``"cuda"`` for a scene on a CUDA device, ``"wavefront"``
   for a scene on the CPU.
 
@@ -98,12 +98,11 @@ def _prepare_cuda_trace(scene: "Scene"):
 @register_trace_backend("cuda", ray_types=RAY_TYPES, lane_multiple=LANES,
                         prepare=_prepare_cuda_trace)
 def _build_cuda_trace(scene: "Scene", ray_type: str, t_min: float, max_rounds):
-    """Scene-entry OpQuadbox pass + the fused CUDA traversal kernel on the
-    packed tree."""
-    from ..kernels.traverse import traverse_scene
+    """The fused CUDA traversal kernel on the packed tree."""
+    from ..kernels.traverse import traverse_packed
 
     def run(ctx, rays):
-        return TraceResult(*traverse_scene(
+        return TraceResult(*traverse_packed(
             ctx, rays, scene.depth, ray_type=ray_type, t_min=t_min,
             max_rounds=max_rounds, config=scene.config))
     return run

@@ -2,8 +2,8 @@
 // triangle, watertight, backface culling, the divide left undone).
 //
 // Replaces: repro/kernels/raytri.py, raytri_kernel (the Pallas TPU kernel).
-// What bounds it on the H100: bytes.  A job reads 18 floats and 3 ints and
-// writes 3 words (96 B) for about 45 f32 operations, 0.47 op per byte.
+// What bounds it on the H100: bytes.  A job reads 15 floats and 3 ints and
+// writes 3 words (84 B) for about 45 f32 operations, 0.54 op per byte.
 // What the design does about it: rows-by-jobs layout, so every row access
 // of a warp is one contiguous segment; the per-job kx/ky/kz crossbar is a
 // register select (datapath.cuh, select_dim); all arithmetic in registers.

@@ -2,9 +2,10 @@
 
 The port's counterpart of ``repro/kernels/ops.py`` for OpQuadbox and
 OpTriangle.  User code speaks ``Ray`` / ``Box`` / ``Triangle``; the
-kernels speak rows-by-jobs.  These pack, pad the job count to a
-multiple of :data:`~repro_torch.kernels.common.LANES` (padding jobs are
-benign: zero boxes, unit inverse / shear), launch, and slice back.
+kernels speak rows-by-jobs.  The ``*_operands`` functions pack and pad
+the job count to a multiple of :data:`~repro_torch.kernels.common.LANES`
+(padding jobs are benign: zero boxes, unit inverse / shear); the
+``*_kernel`` functions launch on those operands and slice back.
 """
 from __future__ import annotations
 
@@ -16,8 +17,9 @@ from .raybox import raybox
 from .raytri import raytri
 
 
-def ray_box_kernel(ray: Ray, boxes: Box) -> QuadBoxResult:
-    """Kernel-backed ray-vs-4-AABB test.  ray fields (N, ·); boxes (N, 4, 3)."""
+def ray_box_operands(ray: Ray, boxes: Box) -> tuple:
+    """The OpQuadbox kernel's operands (org, inv, neg, box_lo, box_hi) for
+    N jobs, padded to whole lanes.  ray fields (N, ·); boxes (N, 4, 3)."""
     n = ray.origin.shape[0]
     n_pad = ceil_to(max(n, 1), LANES)
     org = pad_cols(ray.origin.T, n_pad).contiguous()
@@ -26,13 +28,20 @@ def ray_box_kernel(ray: Ray, boxes: Box) -> QuadBoxResult:
                    n_pad).contiguous()
     lo = pad_cols(boxes.lo.reshape(n, 12).T, n_pad).contiguous()
     hi = pad_cols(boxes.hi.reshape(n, 12).T, n_pad).contiguous()
-    tmin, idx, hit = raybox(org, inv, neg, lo, hi)
+    return org, inv, neg, lo, hi
+
+
+def ray_box_kernel(ray: Ray, boxes: Box) -> QuadBoxResult:
+    """Kernel-backed ray-vs-4-AABB test.  ray fields (N, ·); boxes (N, 4, 3)."""
+    n = ray.origin.shape[0]
+    tmin, idx, hit = raybox(*ray_box_operands(ray, boxes))
     return QuadBoxResult(tmin=tmin.T[:n], box_index=idx.T[:n],
                          is_intersect=hit.T[:n].bool())
 
 
-def ray_triangle_kernel(ray: Ray, tri: Triangle) -> TriangleResult:
-    """Kernel-backed watertight ray-triangle test.  All batched (N, ·)."""
+def ray_triangle_operands(ray: Ray, tri: Triangle) -> tuple:
+    """The OpTriangle kernel's operands (org, shear, k, va, vb, vc) for N
+    jobs, padded to whole lanes.  All batched (N, ·)."""
     n = ray.origin.shape[0]
     n_pad = ceil_to(max(n, 1), LANES)
     org = pad_cols(ray.origin.T, n_pad).contiguous()
@@ -42,6 +51,12 @@ def ray_triangle_kernel(ray: Ray, tri: Triangle) -> TriangleResult:
     va = pad_cols(tri.a.T, n_pad).contiguous()
     vb = pad_cols(tri.b.T, n_pad).contiguous()
     vc = pad_cols(tri.c.T, n_pad).contiguous()
-    t_num, t_denom, hit = raytri(org, shear, k, va, vb, vc)
+    return org, shear, k, va, vb, vc
+
+
+def ray_triangle_kernel(ray: Ray, tri: Triangle) -> TriangleResult:
+    """Kernel-backed watertight ray-triangle test.  All batched (N, ·)."""
+    n = ray.origin.shape[0]
+    t_num, t_denom, hit = raytri(*ray_triangle_operands(ray, tri))
     return TriangleResult(t_num=t_num[:n], t_denom=t_denom[:n],
                           hit=hit[:n].bool())

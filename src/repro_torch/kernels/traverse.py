@@ -17,12 +17,11 @@ from typing import NamedTuple
 import torch
 
 from ..core.bvh import BVH4, DatapathConfig, level_offset, num_nodes, resolve_config
-from ..core.types import Box, Ray, Triangle
+from ..core.types import Ray, Triangle
 from ..core.wavefront import (RAY_TYPES, WavefrontRecord, default_t_min,
                               trace_wavefront)
 from . import nvcc
 from .common import LANES, ceil_to, pad_cols
-from .ops import ray_box_kernel
 
 # Ray operand row layout: one (N_RAY_ROWS, n_pad) union bundle.
 ROW_T_ORG = 0  # rows 0..2   origin
@@ -170,57 +169,3 @@ def traverse_fused(bvh: BVH4, rays: Ray, depth: int, *,
                            ray_type=ray_type, t_min=t_min,
                            max_rounds=max_rounds, config=config)
 
-
-def root_entry_mask(packed: PackedBVH, rays: Ray) -> torch.Tensor:
-    """One OpQuadbox job per ray against the root's four children (the
-    OpQuadbox kernel on CUDA rays): True where the ray hits any of them."""
-    n = rays.origin.shape[0]
-    lo = packed.nlo[:, 1:5].T.expand(n, 4, 3)
-    hi = packed.nhi[:, 1:5].T.expand(n, 4, 3)
-    return ray_box_kernel(rays, Box(lo, hi)).is_intersect.any(dim=1)
-
-
-def traverse_scene(packed: PackedBVH, rays: Ray, depth: int, *,
-                   ray_type: str = "closest", t_min: float | None = None,
-                   max_rounds: int | None = None,
-                   config: DatapathConfig | None = None) -> WavefrontRecord:
-    """Scene-entry pass, then the fused traversal of the rays that enter.
-
-    Every ray first runs the root's OpQuadbox job (:func:`root_entry_mask`).
-    A ray that hits none of the root's children is finished by that job,
-    with exactly the record the traversal gives it (one box job, no
-    triangle job, no hit; the root is not a leaf parent once ``depth >=
-    2``).  When some rays miss, the rest are compacted and traversed by
-    :func:`traverse_packed`; when every ray enters, the batch goes to the
-    kernel as it is.  Results are bit-identical to ``trace_wavefront``.
-    (Measured on the H100, the compaction costs more than it saves; see
-    PERF.md.)
-    """
-    config = resolve_config(config)
-    if max_rounds is None:
-        max_rounds = level_offset(depth, config.arity)
-    kw = dict(ray_type=ray_type, t_min=t_min, max_rounds=max_rounds,
-              config=config)
-    n = rays.origin.shape[0]
-    if depth < 2 or max_rounds < 1 or n == 0:
-        return traverse_packed(packed, rays, depth, **kw)
-    enter = root_entry_mask(packed, rays)
-    if bool(enter.all()):
-        return traverse_packed(packed, rays, depth, **kw)
-    live = torch.nonzero(enter).squeeze(1)
-    dev = rays.origin.device
-    t = torch.full((n,), float("inf"), dtype=torch.float32, device=dev)
-    tri = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    qb = torch.ones((n,), dtype=torch.int32, device=dev)
-    ntri = torch.zeros((n,), dtype=torch.int32, device=dev)
-    ovf = torch.zeros((n,), dtype=torch.bool, device=dev)
-    if live.numel():
-        rec = traverse_packed(packed, Ray(*[f[live] for f in rays]), depth, **kw)
-        t[live] = rec.t
-        tri[live] = rec.tri_index
-        qb[live] = rec.quadbox_jobs
-        ntri[live] = rec.triangle_jobs
-        ovf[live] = rec.stack_overflow
-    return WavefrontRecord(t=t, tri_index=tri, hit=tri >= 0, quadbox_jobs=qb,
-                           triangle_jobs=ntri, stack_overflow=ovf,
-                           rounds=qb.max())

@@ -35,9 +35,10 @@ from repro_torch.convert import bvh_from_numpy, rays_from_numpy
 from repro_torch.core.dispatch import (check_count, concat_rows, make_plan,
                                        pad_leading, slice_rows, split_blocks)
 from repro_torch.core.wavefront import trace_wavefront
-from repro_torch.kernels.traverse import (pack_bvh, pack_rays, root_entry_mask,
-                                          traverse_fused, traverse_packed,
-                                          traverse_scene, unpack_bvh,
+from repro_torch.core.types import Box
+from repro_torch.kernels.ops import ray_box_kernel
+from repro_torch.kernels.traverse import (pack_bvh, pack_rays, traverse_fused,
+                                          traverse_packed, unpack_bvh,
                                           unpack_rays)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -155,28 +156,30 @@ def test_wavefront_on_carried_tree_matches_reference(seed, ray_type):
                                ray_type=ray_type, interpret=None)
     _assert_record(_np(got), want_wf, f"wavefront/{ray_type}", tris, tr)
     _assert_record(_np(got), want_pl, f"pallas/{ray_type}", tris, tr)
-    # the fused kernel's wrapper (its plain path on CPU) with and without the
-    # scene-entry pass, on packed operands, agrees with the plain engine
+    # the fused kernel's wrapper (its plain path on CPU), on packed and on
+    # unpacked operands, agrees with the plain engine
     packed = pack_bvh(tb)
     _assert_same(traverse_packed(packed, tr, res.depth, ray_type=ray_type), got)
-    _assert_same(traverse_scene(packed, tr, res.depth, ray_type=ray_type), got)
     _assert_same(traverse_fused(tb, tr, res.depth, ray_type=ray_type), got)
 
 
-def test_scene_entry_pass_finishes_rays_that_miss_the_root_children():
+def test_rays_missing_the_root_children_retire_after_one_box_job():
     tris, org, dirs, ext = _random_scene(5, n_rays=96)
     dirs[::2] = -dirs[::2]  # half the rays point away from the soup
     org[::2] = org[::2] * 3.0
     res, jr, tb, tr = _carried(tris, org, dirs, ext)
+    n = tr.origin.shape[0]
+    root = Box(tb.node_lo[1:5].expand(n, 4, 3), tb.node_hi[1:5].expand(n, 4, 3))
+    enter = ray_box_kernel(tr, root).is_intersect.any(dim=1)
+    assert 0 < int(enter.sum()) < n
     packed = pack_bvh(tb)
-    enter = root_entry_mask(packed, tr)
-    assert 0 < int(enter.sum()) < tr.origin.shape[0]
     for ray_type in RAY_TYPES:
-        got = traverse_scene(packed, tr, res.depth, ray_type=ray_type)
+        got = traverse_packed(packed, tr, res.depth, ray_type=ray_type)
         want = trace_wavefront(tb, tr, res.depth, ray_type=ray_type)
         _assert_same(got, want, ray_type)
         assert (got.quadbox_jobs[~enter] == 1).all()
         assert (got.triangle_jobs[~enter] == 0).all()
+        assert not got.hit[~enter].any()
         _assert_record(_np(got), jtrace_wavefront(res.bvh, jr, res.depth,
                                                   ray_type=ray_type),
                        ray_type, tris, tr)
@@ -189,7 +192,7 @@ def test_t_min_and_max_rounds_match_reference():
         want = jtrace_wavefront(res.bvh, jr, res.depth, **kw)
         got = trace_wavefront(tb, tr, res.depth, **kw)
         _assert_record(_np(got), want, str(kw), tris, tr)
-        _assert_same(traverse_scene(pack_bvh(tb), tr, res.depth, **kw), got,
+        _assert_same(traverse_packed(pack_bvh(tb), tr, res.depth, **kw), got,
                      str(kw))
 
 
