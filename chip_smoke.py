@@ -23,8 +23,32 @@ Phases (any failure exits non-zero and prints no result line):
    traces are held against ``trace_wavefront`` on the card on every ray;
 6. each kernel timed at the main path's shapes on the main path's own
    inputs, its output held bit-equal to its plain version's on those
-   inputs; one JSON ``kernels`` line (launches on the main path, times,
-   errors, bounds), then the ``{"ok": true, "device": ...}`` line.
+   inputs;
+7. brute-force vector search at the shapes of two public ann-benchmarks
+   sets, synthesised from a seed as clustered Gaussians:
+   ``sift-128-euclidean`` (1,000,000 x 128, 10,000 queries; ``nearest``
+   k=10, ``within`` and ``count_within`` at a radius fixed from the data)
+   and ``glove-100-angular`` (1,183,514 x 100, 10,000 queries; cosine
+   ``nearest`` k=10), through ``VectorIndex.from_database(...).engine(
+   chunk_size=1024)``.  The distance and norm kernels are held to their
+   plain versions on the path's own full-size inputs within
+   ``1e-5 (|q|^2 + |c|^2)`` (distances), ``1e-5 |q| |c|`` (dots) and
+   ``1e-5 |c|^2`` (norms); ``nearest`` equals the ``mxu`` backend's
+   indices on every query whose top-11 scores are further apart than that;
+8. tree search over a 2^20-point cloud (``clustered_soup``'s centres),
+   every point also a query: ``nearest`` k=16, ``within`` and
+   ``count_within`` through ``PointCloudScene.from_points(...).engine()``
+   on ``backend="auto"``, which must resolve to ``tree_cuda``.  The
+   neighbour kernel is held bit-equal to ``neighbor_wavefront`` on all
+   2^20 queries, every field; the tree is held against exact brute force
+   (float64, direct form) on the first 65,536 queries outside a band of
+   the tree's own f32 rounding, ``16 u (|q|^2 + (|q| + rho)^2)``, which
+   must stay below r^2 on every checked query; ``nearest``
+   rank-equivalent;
+
+then one JSON ``kernels`` line (launches on each kernel's path, times,
+errors, bounds, library times) and the ``{"ok": true, "device": ...}``
+line.
 
 It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
@@ -69,6 +93,28 @@ TRAV_RAY_BYTES, TRAV_QB_BYTES, TRAV_TRI_BYTES = 84, 96, 40
 #: f32 ops of a triangle job inside traversal: the unit, the divide, and
 #: the 4 compares of the commit
 TRAV_TRI_OPS = RAYTRI_OPS + 1 + 4
+
+# phase 7: ann-benchmarks shapes (sift-128-euclidean, glove-100-angular)
+SIFT_N, SIFT_D = 1_000_000, 128
+GLOVE_N, GLOVE_D = 1_183_514, 100
+N_QUERIES, N_CLUSTERS_ANN, CHUNK, K_ANN = 10_000, 1000, 1024, 10
+#: in-radius count the sift radius is fixed for (median over a sample)
+TARGET_IN_RADIUS = 30
+SCORE_RTOL = 1e-5
+# phase 8: 2^20 points, every point a query
+TREE_CLUSTERS, TREE_PER_CLUSTER, K_TREE, TREE_RADIUS = 1024, 1024, 16, 0.02
+BRUTE_CHECK_QUERIES, BRUTE_CHUNK = 65_536, 512
+U_F32 = 2.0 ** -24  # unit roundoff of f32
+#: neighbour kernel: a query reads its 4 operand floats and writes k
+#: (distance, index) pairs and 3 counters; for the per-job traffic
+#: estimate (not the bound), a pop of an inner node reads 4 child boxes
+#: and a point job reads a leaf slot and a 4-float packed point
+NEIGH_QUERY_BYTES, NEIGH_BOX_BYTES, NEIGH_POINT_BYTES = 16 + 12, 96, 20
+#: f32 ops of one point-box job (4 boxes x (6 subtracts, 6 compares, 3
+#: multiplies, 2 adds), the 5-comparator sort, the pruning bound and 4
+#: push compares) and of one point job (6 products and sums, the
+#: expanded form, the clamp, the radius and insertion compares)
+NEIGH_BOX_OPS, NEIGH_POINT_OPS = 4 * 17 + 5 + 4 + 4, 12
 
 
 def fail(msg: str) -> None:
@@ -465,23 +511,359 @@ def phase_main_path(torch):
     say(f"phase 6 stage kernels on the frame's inputs: OpQuadbox {n_rb} jobs, "
         f"OpTriangle {n_rt} jobs, each bit-equal to its plain version")
 
-    def row(name, source, replaces, ms, plain_ms, err, bound):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
-
     return [
-        row("raybox", "src/repro_torch/csrc/raybox.cu",
-            "src/repro/kernels/raybox.py:22", rb_ms, rb_plain_ms, rb_err,
-            bound_ms(n_rb * RAYBOX_BYTES, n_rb * RAYBOX_OPS)),
-        row("raytri", "src/repro_torch/csrc/raytri.cu",
-            "src/repro/kernels/raytri.py:19", rt_ms, rt_plain_ms, rt_err,
-            bound_ms(n_rt * RAYTRI_BYTES, n_rt * RAYTRI_OPS)),
-        row("traverse", "src/repro_torch/csrc/traverse.cu",
-            "src/repro/kernels/traverse.py:95", trav_ms, trav_plain_ms,
-            trav_err, trav_bound),
+        kernel_row("raybox", "raybox.cu", "src/repro/kernels/raybox.py:22",
+                   launches, rb_ms, rb_plain_ms, rb_err,
+                   bound_ms(n_rb * RAYBOX_BYTES, n_rb * RAYBOX_OPS)),
+        kernel_row("raytri", "raytri.cu", "src/repro/kernels/raytri.py:19",
+                   launches, rt_ms, rt_plain_ms, rt_err,
+                   bound_ms(n_rt * RAYTRI_BYTES, n_rt * RAYTRI_OPS)),
+        kernel_row("traverse", "traverse.cu", "src/repro/kernels/traverse.py:95",
+                   launches, trav_ms, trav_plain_ms, trav_err, trav_bound),
     ]
+
+
+def kernel_row(name, source, replaces, launches, ms, plain_ms, err, bound,
+               library_ms=None):
+    """One entry of the ``kernels`` line."""
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches[name], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+            "library_ms": library_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: brute-force vector search at ann-benchmarks shapes
+# ---------------------------------------------------------------------------
+
+
+def clustered_vectors(seed: int, n: int, d: int, n_q: int):
+    """Database and queries as clustered Gaussians: ``N_CLUSTERS_ANN``
+    centres N(0, 1), members N(centre, 0.35^2) per feature; the queries
+    are drawn from the same clusters with their own noise."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((N_CLUSTERS_ANN, d), dtype=np.float32)
+    db = centres[rng.integers(0, N_CLUSTERS_ANN, n)]
+    db += 0.35 * rng.standard_normal((n, d), dtype=np.float32)
+    q = centres[rng.integers(0, N_CLUSTERS_ANN, n_q)]
+    q += 0.35 * rng.standard_normal((n_q, d), dtype=np.float32)
+    return db, q
+
+
+def score_error(got, want, scale) -> float:
+    """Fail unless ``|got - want| <= SCORE_RTOL * scale`` everywhere (equal
+    infinities included); return the largest |got - want|."""
+    import torch
+    diff = (got - want).abs()
+    bad = ~(diff <= SCORE_RTOL * scale) & ~(got == want)
+    if bool(bad.any()):
+        fail(f"{int(bad.sum())} scores outside the tolerance, max |diff| "
+             f"{float(diff[torch.isfinite(diff)].max())}")
+    return float(diff[torch.isfinite(diff)].max()) if diff.numel() else 0.0
+
+
+def check_nearest_vs_mxu(torch, label, engine, q, got, metric, tol_scale):
+    """``got`` (the path's ``nearest``) against the mxu backend: indices
+    equal on every query whose top-11 mxu scores are further apart than
+    the score tolerance, and every picked index rank-equivalent."""
+    want = engine.nearest(q, K_ANN + 1, metric, backend="mxu")
+    gaps = (want.scores[:, 1:] - want.scores[:, :-1]).abs()
+    clean = (gaps > SCORE_RTOL * tol_scale[:, None]).all(1)
+    if not torch.equal(got.indices[clean], want.indices[clean, :K_ANN]):
+        fail(f"{label}: nearest indices differ from mxu on well-separated queries")
+    oracle = engine.scores(q[:CHUNK], metric, backend="mxu")
+    picked = torch.gather(oracle, 1, got.indices[:CHUNK].long())
+    if bool(((picked - want.scores[:CHUNK, :K_ANN]).abs()
+             > SCORE_RTOL * tol_scale[:CHUNK, None]).any()):
+        fail(f"{label}: nearest not rank-equivalent to mxu")
+    return int(clean.sum())
+
+
+def qps(fn, n: int) -> tuple[float, float]:
+    ms = wall_ms(fn)
+    return ms, n / ms * 1e3
+
+
+def phase_brute(torch):
+    from repro_torch.api import VectorIndex
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.distance import (distance_cuda, distance_plain,
+                                              norms_cuda, norms_plain)
+
+    # ---- data, and the sift radius fixed from a sample ---------------------
+    sift_db, sift_q = clustered_vectors(SEED + 1, SIFT_N, SIFT_D, N_QUERIES)
+    glove_db, glove_q = clustered_vectors(SEED + 2, GLOVE_N, GLOVE_D, N_QUERIES)
+    q_s = torch.as_tensor(sift_q, device="cuda")
+    q_g = torch.as_tensor(glove_q, device="cuda")
+    torch.cuda.synchronize()
+
+    # ---- one counted drive of the path -------------------------------------
+    nvcc.reset_launches()
+    sift = VectorIndex.from_database(sift_db, device="cuda")
+    s_eng = sift.engine(chunk_size=CHUNK)
+    sample = s_eng.nearest(q_s[:256], TARGET_IN_RADIUS).scores[:, -1]
+    radius = float(sample.median().sqrt())
+    near = s_eng.nearest(q_s, K_ANN)
+    ball = s_eng.within(q_s, radius, K_ANN)
+    counts = s_eng.count_within(q_s, radius)
+    glove = VectorIndex.from_database(glove_db, device="cuda")
+    g_eng = glove.engine(chunk_size=CHUNK)
+    g_near = g_eng.nearest(q_g, K_ANN, "cosine")
+    torch.cuda.synchronize()
+    launches = nvcc.launch_counts()
+    for name in ("distance", "norm"):
+        if launches.get(name, 0) < 1:
+            fail(f"the brute-force path launched no {name} kernel ({launches})")
+
+    # ---- results: shapes, finiteness, agreement with mxu -------------------
+    for label, res in (("sift nearest", near), ("sift within", ball),
+                       ("glove nearest", g_near)):
+        if res.scores.shape != (N_QUERIES, K_ANN) or bool(torch.isnan(res.scores).any()):
+            fail(f"{label}: malformed scores {tuple(res.scores.shape)}")
+    if not bool(near.valid.all()) or not bool(g_near.valid.all()):
+        fail("nearest left a slot empty")
+    mean_in = float(counts.double().mean())
+    if not 10 <= mean_in <= 100:
+        fail(f"sift radius {radius}: mean in-radius count {mean_in} not in 10..100")
+    if not torch.equal(ball.within.sum(1), counts.clamp(max=K_ANN)):
+        fail("within's in-radius slots disagree with count_within")
+    # the witnesses: mxu engines over the same databases whose ||c||^2 come
+    # from the norm kernel's plain version, not from the kernel under test
+    s_wit = VectorIndex(sift.database, sq_norms=norms_plain(sift.database)[0],
+                        device="cuda")
+    g_wit = VectorIndex(glove.database, sq_norms=norms_plain(glove.database)[0],
+                        device="cuda")
+    q2 = (q_s * q_s).sum(1)
+    clean_s = check_nearest_vs_mxu(torch, "sift", s_wit.engine(chunk_size=CHUNK),
+                                   q_s, near, "euclidean", q2 + s_wit.sq_norms.max())
+    clean_g = check_nearest_vs_mxu(torch, "glove", g_wit.engine(chunk_size=CHUNK),
+                                   q_g, g_near, "cosine", torch.ones_like(q_g[:, 0]))
+    del s_wit, g_wit
+    say(f"phase 7 sift-128-euclidean shape: {SIFT_N} x {SIFT_D} database "
+        f"({SIFT_N * SIFT_D * 4 / 1e6:.0f} MB), {N_QUERIES} queries, chunks of "
+        f"{CHUNK}; radius {radius:.6g} (mean in-radius count {mean_in:.2f}); "
+        f"nearest equals mxu on all {clean_s} queries with separated top-11 "
+        f"scores, rank-equivalent on the rest")
+    say(f"phase 7 glove-100-angular shape: {GLOVE_N} x {GLOVE_D} database, "
+        f"{N_QUERIES} queries; cosine nearest equals mxu on all {clean_g} queries "
+        f"with separated top-11 scores (the mxu witnesses take ||c||^2 from "
+        f"norms_plain)")
+
+    # ---- each kernel against its plain version on the path's inputs --------
+    # the kernels' inputs on the path: one query chunk against the whole
+    # database, unpadded (the kernels mask ragged M, N and D)
+    qp, cp = q_s[:CHUNK], sift.database
+    scale = (qp * qp).sum(1)[:, None] + (cp * cp).sum(1)[None, :]
+    dist_ms, d_k = event_ms(lambda: distance_cuda(qp, cp))
+    dist_plain_ms, d_p = event_ms(lambda: distance_plain(qp, cp))
+    dist_err = score_error(d_k, d_p, scale)
+    del d_k, d_p, scale
+    dist_lib_ms, _ = event_ms(lambda: torch.cdist(
+        qp, cp, compute_mode="use_mm_for_euclid_dist"))
+    gp, gcp = q_g[:CHUNK], glove.database
+    dot_ms, a_k = event_ms(lambda: distance_cuda(gp, gcp, mode="angular"))
+    dot_plain_ms, a_p = event_ms(lambda: distance_plain(gp, gcp, "angular"))
+    dot_scale = (gp * gp).sum(1).sqrt()[:, None] * (gcp * gcp).sum(1).sqrt()[None, :]
+    dot_err = score_error(a_k, a_p, dot_scale)
+    del a_k, a_p, dot_scale
+    dot_lib_ms, _ = event_ms(lambda: torch.matmul(gp, gcp.T))  # TF32 is off
+    norm_ms, n_k = event_ms(lambda: norms_cuda(glove.database))
+    norm_plain_ms, n_p = event_ms(lambda: norms_plain(glove.database))
+    norm_err = score_error(n_k, n_p, n_p)
+    norm_lib_ms, _ = event_ms(lambda: torch.linalg.vector_norm(glove.database, dim=1))
+    m, n, d = qp.shape[0], cp.shape[0], qp.shape[1]
+    dist_bound = bound_ms(4.0 * (m * d + n * d + m * n), 2.0 * m * n * d + 3.0 * m * n)
+    gm, gn, gd = gp.shape[0], gcp.shape[0], gp.shape[1]
+    dot_bound = bound_ms(4.0 * (gm * gd + gn * gd + gm * gn), 2.0 * gm * gn * gd)
+    gn_raw = glove.database.shape[0]
+    norm_bound = bound_ms(4.0 * (gn_raw * GLOVE_D + gn_raw), 2.0 * gn_raw * GLOVE_D)
+    say(f"phase 7 distance kernel, euclidean {m} x {n} x {d}: {dist_ms:.3f} ms "
+        f"(plain {dist_plain_ms:.3f}, torch.cdist {dist_lib_ms:.3f} [returns the "
+        f"root], bound {dist_bound[0]:.3f} {dist_bound[1]}), max |err| {dist_err:.3g}")
+    say(f"phase 7 distance kernel, angular {gm} x {gn} x {gd}: {dot_ms:.3f} ms "
+        f"(plain {dot_plain_ms:.3f}, torch.matmul {dot_lib_ms:.3f}, bound "
+        f"{dot_bound[0]:.3f} {dot_bound[1]}), max |err| {dot_err:.3g}")
+    say(f"phase 7 norm kernel {gn_raw} x {GLOVE_D}: {norm_ms:.4f} ms (plain "
+        f"{norm_plain_ms:.4f}, torch.linalg.vector_norm {norm_lib_ms:.4f} [returns "
+        f"the root], bound {norm_bound[0]:.4f} {norm_bound[1]}), max |err| "
+        f"{norm_err:.3g}")
+
+    # ---- queries per second per call ---------------------------------------
+    for label, fn in (
+            ("sift nearest k=10", lambda: s_eng.nearest(q_s, K_ANN)),
+            ("sift within k=10", lambda: s_eng.within(q_s, radius, K_ANN)),
+            ("sift count_within", lambda: s_eng.count_within(q_s, radius)),
+            ("glove cosine nearest k=10",
+             lambda: g_eng.nearest(q_g, K_ANN, "cosine"))):
+        ms, rate = qps(fn, N_QUERIES)
+        say(f"phase 7 {label}: {ms:.3f} ms per call of {N_QUERIES} queries "
+            f"(median of {TIMED_REPS}), {rate:.6g} queries/s")
+    build_ms = wall_ms(lambda: VectorIndex.from_database(sift_db, device="cuda"))
+    say(f"phase 7 VectorIndex.from_database (sift, copy in + norms): "
+        f"{build_ms:.3f} ms")
+    return [
+        kernel_row("distance", "distance.cu", "src/repro/kernels/distance.py:33",
+                   launches, dist_ms, dist_plain_ms, dist_err, dist_bound,
+                   dist_lib_ms),
+        kernel_row("norm", "distance.cu", "src/repro/kernels/distance.py:65",
+                   launches, norm_ms, norm_plain_ms, norm_err, norm_bound,
+                   norm_lib_ms),
+    ]
+
+
+# ---------------------------------------------------------------------------
+# phase 8: tree neighbour search over a point cloud
+# ---------------------------------------------------------------------------
+
+
+def phase_tree(torch):
+    from repro_torch.api import PointCloudScene
+    from repro_torch.core.build.quality import clustered_soup
+    from repro_torch.core.bvh import num_nodes
+    from repro_torch.core.neighbor import (neighbor_wavefront, point_queries,
+                                           point_sq_norms)
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.traverse import neighbor_packed, pack_point_bvh
+
+    rng = np.random.default_rng(SEED + 3)
+    points = clustered_soup(rng, TREE_CLUSTERS, TREE_PER_CLUSTER, device="cuda").a
+    n = points.shape[0]
+    torch.cuda.synchronize()
+
+    # ---- one counted drive of the path -------------------------------------
+    nvcc.reset_launches()
+    cloud = PointCloudScene.from_points(points, device="cuda")
+    eng = cloud.engine()
+    for kind, kw in (("nearest", dict(k=K_TREE)), ("within", dict(radius=TREE_RADIUS)),
+                     ("count_within", dict(radius=TREE_RADIUS))):
+        chosen = eng.resolve_neighbor_backend(kind, "euclidean", **kw)
+        if chosen != "tree_cuda":
+            fail(f"auto resolved {kind} to {chosen!r}, not 'tree_cuda'")
+    near = eng.nearest(points, K_TREE)
+    ball = eng.within(points, TREE_RADIUS, K_TREE)
+    counts = eng.count_within(points, TREE_RADIUS)
+    torch.cuda.synchronize()
+    launches = nvcc.launch_counts()
+    if launches.get("neighbor", 0) < 1:
+        fail(f"the tree path launched no neighbor kernel ({launches})")
+    if cloud.depth != 10 or cloud.bvh.node_lo.shape[0] != num_nodes(10):
+        fail(f"unexpected tree: depth {cloud.depth}, {cloud.bvh.node_lo.shape[0]} nodes")
+    if not bool(near.valid.all()) or not bool((near.scores[:, 0] == 0).all()):
+        fail("nearest: a query did not find itself first")
+    if not torch.equal(ball.within.sum(1), counts.clamp(max=K_TREE)):
+        fail("within's in-radius slots disagree with count_within")
+
+    # ---- the kernel bit-equal to neighbor_wavefront on every query ---------
+    packed = pack_point_bvh(cloud.bvh)
+    sq = point_sq_norms(cloud.points)
+    records = {}
+    for mode, radius in (("nearest", None), ("within", TREE_RADIUS)):
+        rays = point_queries(points, radius, device="cuda")
+        ms, got = event_ms(lambda: neighbor_packed(packed, rays, cloud.depth, K_TREE,
+                                                   mode=mode))
+        plain_ms, want = event_ms(lambda: neighbor_wavefront(
+            cloud.bvh, sq, rays, cloud.depth, K_TREE, mode), reps=1)
+        err = same_bits(f"neighbor kernel vs neighbor_wavefront ({mode}) on all "
+                        f"{n} queries", got, want)
+        records[mode] = (ms, plain_ms, err, got)
+    if not torch.equal(records["nearest"][3].index, near.indices) or \
+            not torch.equal(records["within"][3].count, counts):
+        fail("the engine's tree results differ from the kernel's on the same queries")
+    say(f"phase 8 cloud: {n} points (clustered_soup centres), LBVH depth "
+        f"{cloud.depth}, {cloud.bvh.node_lo.shape[0]} nodes; every point is a "
+        f"query; neighbor kernel bit-equal to neighbor_wavefront on all {n} "
+        f"queries for nearest k={K_TREE} and within r={TREE_RADIUS}, every field")
+
+    # ---- tree against brute force on the first queries ---------------------
+    # The witness is exact: squared distances in float64 in the direct form
+    # sum (q - c)^2, which does not cancel (f32 inputs, so each is exact to
+    # ~1e-16 relative).  The band is the tree's own f32 rounding: it
+    # evaluates (|q|^2 - 2 q.c) + |c|^2 with every op rounded, within
+    # 8 u (|q|^2 + |c|^2) of the exact value to first order (u = 2^-24);
+    # comparing two such values doubles it.  A candidate that matters lies
+    # within rho = 2 max(r, d_k) of the query, so |c| <= |q| + rho.
+    r_sq = TREE_RADIUS * TREE_RADIUS
+    pts64 = points.double()
+    sq64 = (pts64 * pts64).sum(1)
+    bands = torch.empty(BRUTE_CHECK_QUERIES, dtype=torch.float64, device="cuda")
+    tree_err = 0.0
+    for lo in range(0, BRUTE_CHECK_QUERIES, BRUTE_CHUNK):
+        hi = lo + BRUTE_CHUNK
+        qc = pts64[lo:hi]
+        s = (qc[:, 0:1] - pts64[None, :, 0]).square_()
+        for ax in (1, 2):
+            s.add_((qc[:, ax:ax + 1] - pts64[None, :, ax]).square_())
+        kth = torch.topk(s, K_TREE, dim=1, largest=False).values
+        rho = 2.0 * kth[:, -1:].clamp_min(r_sq).sqrt()
+        q_norm = sq64[lo:hi, None].sqrt()
+        band = 16.0 * U_F32 * (q_norm * q_norm + (q_norm + rho) ** 2)
+        bands[lo:hi] = band[:, 0]
+        must = (s <= r_sq - band).sum(1)
+        may = (s <= r_sq + band).sum(1)
+        c = counts[lo:hi]
+        if not bool(((must <= c) & (c <= may)).all()):
+            fail(f"count_within outside the brute band on queries {lo}..")
+        w = ball.within[lo:hi]
+        picked = torch.gather(s, 1, ball.indices[lo:hi].long().clamp(min=0))
+        if bool((picked > r_sq + band)[w].any()):
+            fail(f"within returned a point outside the band on queries {lo}..")
+        picked = torch.gather(s, 1, near.indices[lo:hi].long())
+        if bool(((picked - kth).abs() > band).any()):
+            fail(f"nearest not rank-equivalent to brute force on queries {lo}..")
+        tree_err = max(tree_err, float((near.scores[lo:hi].double() - picked).abs().max()))
+        del s
+    wide = int((bands >= r_sq).sum())
+    if wide:
+        fail(f"{wide} checked queries have a band >= r^2: the check cannot see "
+             "in-radius points there")
+    say(f"phase 8 check: tree against exact brute force (float64, direct form) "
+        f"on the first {BRUTE_CHECK_QUERIES} queries: counts and within sets as "
+        f"brute force has them outside the band 16 u (|q|^2 + (|q| + rho)^2) "
+        f"(largest {float(bands.max()):.6g}, r^2 = {r_sq:.6g}, 0 queries with "
+        f"band >= r^2), nearest rank-equivalent within that band; largest "
+        f"|tree d^2 - exact d^2| on the nearest picks {tree_err:.6g}")
+
+    # ---- timings -----------------------------------------------------------
+    build_ms = wall_ms(lambda: PointCloudScene.from_points(points, device="cuda"))
+    say(f"phase 8 build: {build_ms:.3f} ms for {n} points (LBVH + the index's "
+        f"norms on the card, median of {TIMED_REPS})")
+    for label, fn, rec in (
+            (f"nearest k={K_TREE}", lambda: eng.nearest(points, K_TREE),
+             records["nearest"][3]),
+            (f"within r={TREE_RADIUS} k={K_TREE}",
+             lambda: eng.within(points, TREE_RADIUS, K_TREE), records["within"][3]),
+            (f"count_within r={TREE_RADIUS}",
+             lambda: eng.count_within(points, TREE_RADIUS), records["within"][3])):
+        ms, rate = qps(fn, n)
+        say(f"phase 8 {label}: {ms:.3f} ms per call of {n} queries (median of "
+            f"{TIMED_REPS}), {rate:.6g} queries/s; box_jobs/query "
+            f"{rec.box_jobs.double().mean().item():.3f}, point_jobs/query "
+            f"{rec.point_jobs.double().mean().item():.3f}, rounds {int(rec.rounds)}")
+    say(f"phase 8 mean in-radius count {counts.double().mean().item():.3f}")
+
+    # bound: the distinct bytes (each query's operands and outputs, the
+    # packed tree, leaf table and cloud, each once) against the f32
+    # operations this run's job counters count
+    ms, plain_ms, err, rec = records["nearest"]
+    pops = float(rec.box_jobs.double().sum())
+    pt_jobs = float(rec.point_jobs.double().sum())
+    inner = pops - pt_jobs / 4
+    tree_bytes = sum(t.numel() * t.element_size() for t in packed)
+    bound = bound_ms(n * (NEIGH_QUERY_BYTES + 8 * K_TREE) + tree_bytes,
+                     inner * NEIGH_BOX_OPS + pt_jobs * NEIGH_POINT_OPS)
+    job_bytes = (n * (NEIGH_QUERY_BYTES + 8 * K_TREE) + inner * NEIGH_BOX_BYTES
+                 + pt_jobs * NEIGH_POINT_BYTES)
+    say(f"phase 8 neighbor kernel (nearest k={K_TREE}, {n} queries): {ms:.3f} ms, "
+        f"plain {plain_ms:.1f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+        f"{tree_bytes / 1e6:.1f} MB of packed tree and cloud, "
+        f"{(inner * NEIGH_BOX_OPS + pt_jobs * NEIGH_POINT_OPS) / n:.1f} f32 ops "
+        f"per query); estimate, not a bound: every job's bytes from HBM "
+        f"{job_bytes / 1e9:.3f} GB = {job_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
+        f"within r={TREE_RADIUS}: {records['within'][0]:.3f} ms")
+    return [kernel_row("neighbor", "neighbor.cu", "src/repro/kernels/traverse.py:369",
+                       launches, ms, plain_ms, max(err, records["within"][2]),
+                       bound)]
 
 
 def main() -> None:
@@ -523,6 +905,8 @@ def main() -> None:
     phase_stage_kernels(torch, rng)
     phase_goldens(torch)
     kernels = phase_main_path(torch)
+    kernels += phase_brute(torch)
+    kernels += phase_tree(torch)
 
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -7,14 +7,32 @@
     hits = engine.trace(make_ray(origins, directions))       # closest-hit
     shadowed = engine.trace(shadow_rays, ray_type="shadow").hit
 
+    index = VectorIndex.from_database(embeddings)    # ||c||^2 on the card
+    near = index.engine(chunk_size=1024).nearest(queries, k=10, metric="cosine")
+
+    cloud = PointCloudScene.from_points(points)      # BVH4 of point leaves
+    engine = cloud.engine()
+    knn = engine.nearest(queries, k=16)              # tree or brute, auto
+    counts = engine.count_within(queries, radius=0.1)
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 from .core.build import BuildResult, builders, register_builder  # noqa: F401
 from .core.bvh import BVH4, DEFAULT_CONFIG, DatapathConfig  # noqa: F401
+from .core.knn import METRICS, RADIUS_METRICS  # noqa: F401
+from .core.neighbor import NEIGHBOR_MODES, NeighborRecord  # noqa: F401
 from .core.session import (  # noqa: F401
+    NearestResult,
+    PointCloudScene,
     QueryEngine,
     Scene,
     TraceResult,
+    VectorIndex,
+    WithinResult,
+    distance_backends,
+    neighbor_backends,
+    register_distance_backend,
+    register_neighbor_backend,
     register_trace_backend,
     trace_backend_ray_types,
     trace_backends,
@@ -28,16 +46,28 @@ __all__ = [
     "BuildResult",
     "DEFAULT_CONFIG",
     "DatapathConfig",
+    "METRICS",
+    "NEIGHBOR_MODES",
+    "NearestResult",
+    "NeighborRecord",
+    "PointCloudScene",
     "QueryEngine",
+    "RADIUS_METRICS",
     "RAY_TYPES",
     "Ray",
     "SHADOW_T_MIN",
     "Scene",
     "TraceResult",
     "Triangle",
+    "VectorIndex",
+    "WithinResult",
     "builders",
+    "distance_backends",
     "make_ray",
+    "neighbor_backends",
     "register_builder",
+    "register_distance_backend",
+    "register_neighbor_backend",
     "register_trace_backend",
     "trace_backend_ray_types",
     "trace_backends",

@@ -1,17 +1,19 @@
 """Carry state across from the reference package, through numpy.
 
 The port imports nothing of ``repro``; a caller who holds a ``repro``
-BVH or ray batch passes its arrays as numpy and gets the port's records
-back.  With these, traversal parity can be tested apart from builder
-parity: both packages traverse the very same tree.
+BVH, ray batch, vector index or point cloud passes its arrays as numpy
+and gets the port's objects back.  With these, traversal parity can be
+tested apart from builder parity: both packages traverse the very same
+tree.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .core.bvh import BVH4
+from .core.bvh import BVH4, DEFAULT_CONFIG
 from .core.device import resolve_device
+from .core.session import PointCloudScene, VectorIndex
 from .core.types import Ray, Triangle
 
 
@@ -42,3 +44,24 @@ def rays_from_numpy(origin, direction, inv, extent, kx, ky, kz, shear, *,
                inv=_f32(inv, device), extent=_f32(extent, device),
                kx=_i32(kx, device), ky=_i32(ky, device), kz=_i32(kz, device),
                shear=_f32(shear, device))
+
+
+def index_from_numpy(database, sq_norms=None, *, device=None) -> VectorIndex:
+    """A ``repro`` ``VectorIndex``'s database (and, optionally, its
+    ``sq_norms``) as numpy -> the port's ``VectorIndex``."""
+    device = resolve_device(device)
+    return VectorIndex(_f32(database, device),
+                       None if sq_norms is None else _f32(sq_norms, device),
+                       device=device)
+
+
+def point_cloud_from_numpy(node_lo, node_hi, leaf_tri, points, leaf_perm, depth,
+                           *, device=None) -> PointCloudScene:
+    """A ``repro`` point BVH's arrays (as numpy; ``points`` is its
+    ``triangles.a``) -> the port's ``PointCloudScene`` over the same tree."""
+    device = resolve_device(device)
+    pts = _f32(points, device)
+    bvh = BVH4(node_lo=_f32(node_lo, device), node_hi=_f32(node_hi, device),
+               leaf_tri=_i32(leaf_tri, device), triangles=Triangle(pts, pts, pts),
+               leaf_perm=_i32(leaf_perm, device))
+    return PointCloudScene(bvh, int(depth), config=DEFAULT_CONFIG)

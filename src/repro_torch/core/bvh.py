@@ -64,6 +64,16 @@ def bvh_depth(n_triangles: int, arity: int = 4) -> int:
     return max(1, math.ceil(math.log(max(n_triangles, 2), arity)))
 
 
+def bvh4_depth(n_triangles: int) -> int:
+    """Static tree depth: smallest D with 4**D >= n (min 1)."""
+    return bvh_depth(n_triangles, 4)
+
+
+def depth_of(bvh: BVH4, arity: int = 4) -> int:
+    """Recover the static depth from the leaf array length (arity**depth)."""
+    return bvh_depth(bvh.leaf_tri.shape[0], arity)
+
+
 def level_offset(level: int, arity: int = 4) -> int:
     return (arity**level - 1) // (arity - 1)
 
@@ -85,6 +95,14 @@ def fit_nodes(leaf_lo: torch.Tensor, leaf_hi: torch.Tensor, depth: int,
         levels_lo.append(cur_lo)
         levels_hi.append(cur_hi)
     return torch.cat(levels_lo[::-1], dim=0), torch.cat(levels_hi[::-1], dim=0)
+
+
+def encode_nodes(node_lo: torch.Tensor, node_hi: torch.Tensor, depth: int,
+                 config: DatapathConfig | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The config's node-box codec after :func:`fit_nodes`: the identity
+    for :data:`DEFAULT_CONFIG`, the only config ported so far."""
+    resolve_config(config)
+    return node_lo, node_hi
 
 
 def nondegenerate_mask(tri: Triangle) -> torch.Tensor:

@@ -1,10 +1,10 @@
-"""The Ray Tracer Datapath's two traversal stage units, in plain PyTorch.
+"""The Ray Tracer Datapath's traversal stage units, in plain PyTorch.
 
-The port's counterpart of ``repro/core/datapath.py`` (OpQuadbox and
-OpTriangle).  Each stage is one eager elementwise op, and PyTorch rounds
+The port's counterpart of ``repro/core/datapath.py`` (OpQuadbox,
+OpTriangle and the point-box test of neighbour search).  Each stage is one eager elementwise op, and PyTorch rounds
 every such op to f32, which is the paper's round-after-every-functional-
-unit choice (§III-D).  These are the plain versions of the OpQuadbox and
-OpTriangle CUDA kernels (``csrc/datapath.cuh``): the CPU path runs them,
+unit choice (§III-D).  These are the plain versions of the stage units of
+the CUDA kernels (``csrc/datapath.cuh``): the CPU path runs them,
 and the kernels are held bit-equal to them on the card.
 
 Comparator semantics: min/max are compare-and-select
@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from .types import Box, QuadBoxResult, Ray, Triangle, TriangleResult
+from .types import Box, PointBoxResult, QuadBoxResult, Ray, Triangle, TriangleResult
 
 
 def cmp_select(a: torch.Tensor, b: torch.Tensor, lt: torch.Tensor | None = None):
@@ -94,6 +94,23 @@ def ray_box_test(ray: Ray, boxes: Box) -> QuadBoxResult:
     tmin_s, idx_s, hit_s = boxsort(tmin, idx, hit_i)
     return QuadBoxResult(tmin=tmin_s, box_index=idx_s,
                          is_intersect=hit_s.bool())
+
+
+def point_box_test(point: torch.Tensor, boxes: Box) -> PointBoxResult:
+    """Batched point-vs-4-AABB squared distance, the neighbour-query twin
+    of :func:`ray_box_test`.  point: (..., 3); boxes: (..., 4, 3).  Per
+    axis the gap is ``fmax(lo - p, fmax(p - hi, 0))``, so an inverted pad
+    box gives +inf and sorts last; the quad-sort network orders the
+    children near to far."""
+    p = point.unsqueeze(-2)  # (..., 1, 3)
+    below = boxes.lo - p  # stage 2: per-axis signed gaps to both faces
+    above = p - boxes.hi
+    gap = fmax(below, fmax(above, torch.zeros_like(below)))
+    sq = gap * gap
+    d2 = (sq[..., 0] + sq[..., 1]) + sq[..., 2]
+    idx = torch.arange(4, dtype=torch.int32, device=d2.device).expand(d2.shape)
+    d2_sorted, idx_sorted = quadsort(d2, idx)
+    return PointBoxResult(dist_sq=d2_sorted, box_index=idx_sorted)
 
 
 def _gather_dim(v: torch.Tensor, k: torch.Tensor) -> torch.Tensor:

@@ -1,17 +1,38 @@
-"""Session query surface, trace half: build a :class:`Scene` once, query
-its :class:`QueryEngine`.
+"""Session query surface: build a :class:`Scene`, :class:`VectorIndex` or
+:class:`PointCloudScene` once, query its :class:`QueryEngine`.
 
-The port's counterpart of the trace surface of ``repro/core/session.py``.
-Trace backends are pluggable and return the same :class:`TraceResult`:
+The port's counterpart of ``repro/core/session.py``.  Backends are
+pluggable, and every backend of a kind returns the same record.
+
+Trace backends (:class:`TraceResult`):
 
 * ``"wavefront"`` -- the plain batch-level engine
   (``core/wavefront.trace_wavefront``), on any device;
 * ``"cuda"`` -- the fused traversal kernel (``kernels/traverse.
   traverse_packed``; ``csrc/traverse.cu``), whose ``prepare`` hook packs
   the tree once per scene version and whose batches are padded to whole
-  128-ray blocks;
-* ``"auto"`` -- ``"cuda"`` for a scene on a CUDA device, ``"wavefront"``
-  for a scene on the CPU.
+  128-ray blocks.
+
+Distance backends (scores for ``nearest`` / ``within`` / ``count_within``
+/ ``scores``):
+
+* ``"mxu"`` -- the plain matmul form with the index's ``||c||^2``
+  (``core/knn.pairwise_scores``, TF32 off), on any device;
+* ``"cuda"`` -- the distance kernel (``kernels/ops``; ``csrc/
+  distance.cu``), cosine normalised by the index's precomputed norms.
+
+Neighbour backends (tree search over a point cloud, :class:`NeighborRecord`):
+
+* ``"tree_wavefront"`` -- the plain batch-level engine
+  (``core/neighbor.neighbor_wavefront``), on any device;
+* ``"tree_cuda"`` -- the fused neighbour kernel (``kernels/traverse.
+  neighbor_packed``; ``csrc/neighbor.cu``), packed once per cloud version,
+  batches padded to whole 128-query blocks; on a CPU cloud it is the
+  kernel's plain version, ``tree_wavefront``.
+
+``"auto"`` picks the kernel backend for data on a CUDA device and the
+plain one on the CPU; neighbour queries also choose tree or brute force
+by cloud size and selectivity (:meth:`QueryEngine.resolve_neighbor_backend`).
 
 Every query runs ``pad -> query -> unpad`` through ``core/dispatch``;
 ``chunk_size`` streams a batch through fixed-size blocks, and ``rounds``
@@ -20,6 +41,7 @@ sharding and the ``per_ray`` oracle.
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import numpy as np
@@ -27,10 +49,17 @@ import torch
 
 from ..kernels.common import LANES
 from .build import build as build_structure
+from .build.points import build_point_bvh
 from .bvh import BVH4, DatapathConfig, resolve_config
 from .device import resolve_device
 from .dispatch import check_count, check_shards, concat_rows, make_plan, split_blocks
-from .types import Ray, Triangle
+from .knn import (METRICS, RADIUS_METRICS, angular_scores, check_k, check_radius,
+                  cosine_epilogue, cosine_similarity, count_within_scores, knn,
+                  pairwise_scores, radius_count, radius_search, select_topk,
+                  select_within)
+from .neighbor import (NeighborRecord, empty_neighbors, neighbor_wavefront,
+                       point_queries, point_sq_norms)
+from .types import Ray, Triangle, as_f32
 from .wavefront import RAY_TYPES, default_t_min, trace_wavefront
 
 
@@ -46,7 +75,25 @@ class TraceResult(NamedTuple):
     rounds: torch.Tensor  # ()   i32  batch-level rounds (= max per-ray jobs)
 
 
-#: padding multiple of every batch (the cuda backend raises it to LANES)
+class NearestResult(NamedTuple):
+    """k-nearest result: scores ascending (euclidean) / descending (angular,
+    cosine), indices into the database.  ``k`` clamps to the database
+    size; the excess slots carry inf / -inf, index -1 and ``valid`` False."""
+
+    scores: torch.Tensor  # (M, k) f32
+    indices: torch.Tensor  # (M, k) i32
+    valid: torch.Tensor  # (M, k) bool  which slots hold real neighbours
+
+
+class WithinResult(NamedTuple):
+    """Fixed-radius result: top-k by proximity with an in-radius mask."""
+
+    scores: torch.Tensor  # (M, k) f32
+    indices: torch.Tensor  # (M, k) i32
+    within: torch.Tensor  # (M, k) bool  which of the k slots are in range
+
+
+#: padding multiple of every batch (the kernel backends raise it to LANES)
 DEFAULT_PAD_MULTIPLE = 8
 
 # name -> (supported ray types,
@@ -54,6 +101,15 @@ DEFAULT_PAD_MULTIPLE = 8
 #          row multiple the backend wants, or None,
 #          optional prepare(scene) -> fn(bvh) -> ctx, run once per version)
 _TRACE_BACKENDS: dict[str, tuple] = {}
+
+# name -> build(index, metric) -> fn(queries) -> (M, N) scores (squared
+# distances for euclidean, similarities otherwise)
+_DISTANCE_BACKENDS: dict[str, Callable] = {}
+
+# name -> (build(cloud, mode, k) -> fn(ctx, rays) -> NeighborRecord,
+#          row multiple the backend wants, or None,
+#          prepare(cloud) -> fn(bvh) -> ctx, run once per cloud version)
+_NEIGHBOR_BACKENDS: dict[str, tuple] = {}
 
 
 def register_trace_backend(name: str, ray_types=RAY_TYPES,
@@ -69,8 +125,37 @@ def register_trace_backend(name: str, ray_types=RAY_TYPES,
     return deco
 
 
+def register_distance_backend(name: str):
+    """Register a distance backend: ``build(index, metric)`` returns
+    ``fn(queries) -> (M, N) scores``."""
+    def deco(build):
+        _DISTANCE_BACKENDS[name] = build
+        return build
+    return deco
+
+
+def register_neighbor_backend(name: str, lane_multiple: int | None = None,
+                              prepare: Callable | None = None):
+    """Register a tree-backed neighbour backend: ``build(cloud, mode, k)``
+    returns ``fn(ctx, rays) -> NeighborRecord``, where the rays are
+    :func:`~repro_torch.core.neighbor.point_queries` bundles and ``ctx`` is
+    ``prepare(cloud)(bvh)`` (the BVH itself without a prepare hook)."""
+    def deco(build):
+        _NEIGHBOR_BACKENDS[name] = (build, lane_multiple, prepare)
+        return build
+    return deco
+
+
 def trace_backends() -> tuple[str, ...]:
     return tuple(_TRACE_BACKENDS)
+
+
+def distance_backends() -> tuple[str, ...]:
+    return tuple(_DISTANCE_BACKENDS)
+
+
+def neighbor_backends() -> tuple[str, ...]:
+    return tuple(_NEIGHBOR_BACKENDS)
 
 
 def trace_backend_ray_types(name: str) -> tuple[str, ...]:
@@ -105,6 +190,67 @@ def _build_cuda_trace(scene: "Scene", ray_type: str, t_min: float, max_rounds):
         return TraceResult(*traverse_packed(
             ctx, rays, scene.depth, ray_type=ray_type, t_min=t_min,
             max_rounds=max_rounds, config=scene.config))
+    return run
+
+
+@register_distance_backend("mxu")
+def _build_mxu_scores(index: "VectorIndex", metric: str):
+    """The plain matmul form with the index's precomputed ||c||^2."""
+    db, c2 = index.database, index.sq_norms
+    return lambda q: pairwise_scores(q, db, metric, c_sq_norms=c2)
+
+
+@register_distance_backend("cuda")
+def _build_cuda_scores(index: "VectorIndex", metric: str):
+    """The distance kernel; cosine divides the kernel's dots by the
+    index's precomputed norms (OpAngular's second output, computed once
+    with the index)."""
+    from ..kernels import ops as kops
+
+    db = index.database
+    if metric == "euclidean":
+        return lambda q: kops.euclidean_kernel(q, db)
+    if metric == "angular":
+        return lambda q: kops.dot_kernel(q, db)
+    if metric == "cosine":
+        c2 = index.sq_norms
+        return lambda q: cosine_epilogue(kops.dot_kernel(q, db), c2, q)
+    raise ValueError(f"unknown metric: {metric} (want one of {METRICS})")
+
+
+def _prepare_tree_wavefront(cloud: "PointCloudScene"):
+    """The plain engine's ctx: the BVH and its points' ||c||^2, derived
+    from the array the tree holds."""
+    return lambda bvh: (bvh, point_sq_norms(bvh.triangles.a))
+
+
+@register_neighbor_backend("tree_wavefront", prepare=_prepare_tree_wavefront)
+def _build_tree_wavefront(cloud: "PointCloudScene", mode: str, k: int):
+    """The plain batch-level neighbour loop, on the cloud's device."""
+    def run(ctx, rays):
+        bvh, sq = ctx
+        return neighbor_wavefront(bvh, sq, rays, cloud.depth, k=k, mode=mode)
+    return run
+
+
+def _prepare_tree_cuda(cloud: "PointCloudScene"):
+    if cloud.device.type != "cuda":
+        return _prepare_tree_wavefront(cloud)
+    from ..kernels.traverse import pack_point_bvh
+    return pack_point_bvh
+
+
+@register_neighbor_backend("tree_cuda", lane_multiple=LANES,
+                           prepare=_prepare_tree_cuda)
+def _build_tree_cuda(cloud: "PointCloudScene", mode: str, k: int):
+    """The fused CUDA neighbour kernel on the packed cloud (its plain
+    version on a CPU cloud)."""
+    if cloud.device.type != "cuda":
+        return _build_tree_wavefront(cloud, mode, k)
+    from ..kernels.traverse import neighbor_packed
+
+    def run(ctx, rays):
+        return neighbor_packed(ctx, rays, cloud.depth, k, mode=mode)
     return run
 
 
@@ -171,38 +317,253 @@ class Scene:
                 f"builder={self.builder!r}, device={str(self.device)!r})")
 
 
-class QueryEngine:
-    """Query session over a :class:`Scene`.
+def _validate_points_finite(points: torch.Tensor, where: str) -> None:
+    if not bool(torch.isfinite(points).all()):
+        raise ValueError(f"{where}: points must be finite (no NaN/inf); one "
+                         "bad point poisons the cloud bounds")
 
-    ``backend="auto"`` picks ``"cuda"`` for a scene on a CUDA device and
-    ``"wavefront"`` on the CPU.  ``chunk_size`` (engine-wide or per call)
-    streams a batch through fixed-size blocks; ``shard`` must be 1 (or
-    None) until sharding is ported.  Zero-row batches return a typed empty
-    result without launching anything.
+
+def _on_device(x, device: torch.device, what: str) -> torch.Tensor:
+    """A query batch as f32 on ``device``: numpy goes there, a tensor must
+    already be there."""
+    if isinstance(x, torch.Tensor):
+        if x.device != device:
+            raise ValueError(f"{what} on {x.device}, data on {device}")
+        return x.to(torch.float32).contiguous()
+    return as_f32(x, device)
+
+
+class VectorIndex:
+    """A prepared vector database: the candidate matrix and its ||c||^2.
+
+    The norms are OpAngular's second output, computed once at build time
+    (by the norm kernel for a database on a CUDA device, by its plain
+    version on the CPU) and reused by every query."""
+
+    def __init__(self, database, sq_norms=None, device=None):
+        device = resolve_device(device)
+        self.database = as_f32(database, device)
+        if self.database.ndim != 2:
+            raise ValueError(f"expected an (N, D) database, got "
+                             f"{tuple(self.database.shape)}")
+        if sq_norms is None:
+            from ..kernels.distance import norms_cuda
+            sq_norms = norms_cuda(self.database)[0]
+        self.sq_norms = as_f32(sq_norms, device)
+
+    @classmethod
+    def from_database(cls, database, device=None) -> "VectorIndex":
+        """Build on ``device`` (default CUDA, raising without a GPU; pass
+        ``device="cpu"`` for the plain path)."""
+        return cls(database, device=device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.database.device
+
+    @property
+    def size(self) -> int:
+        return int(self.database.shape[0])
+
+    @property
+    def dim(self) -> int:
+        return int(self.database.shape[-1])
+
+    def _q(self, queries) -> torch.Tensor:
+        return _on_device(queries, self.device, "queries")
+
+    def dots(self, queries) -> torch.Tensor:
+        """OpAngular dot products only.  (M, D) -> (M, N)."""
+        return angular_scores(self._q(queries), self.database,
+                              c_sq_norms=self.sq_norms)[0]
+
+    def cosine_similarity(self, queries) -> torch.Tensor:
+        return cosine_similarity(self._q(queries), self.database,
+                                 c_sq_norms=self.sq_norms)
+
+    def knn(self, queries, k: int, metric: str = "euclidean"):
+        return knn(self._q(queries), self.database, k, metric,
+                   c_sq_norms=self.sq_norms)
+
+    def radius_search(self, queries, radius: float, k: int,
+                      metric: str = "euclidean"):
+        return radius_search(self._q(queries), self.database, radius, k, metric,
+                             c_sq_norms=self.sq_norms)
+
+    def radius_count(self, queries, radius: float, metric: str = "euclidean"):
+        return radius_count(self._q(queries), self.database, radius, metric,
+                            c_sq_norms=self.sq_norms)
+
+    def engine(self, **kwargs) -> "QueryEngine":
+        return QueryEngine(index=self, **kwargs)
+
+    def __repr__(self):
+        return (f"VectorIndex(size={self.size}, dim={self.dim}, "
+                f"device={str(self.device)!r})")
+
+
+class PointCloudScene:
+    """A prepared point cloud: a BVH4 over AABB-per-point leaves plus the
+    :class:`VectorIndex` over the same points, so one engine serves the
+    tree backends and the brute-force distance backends."""
+
+    def __init__(self, bvh: BVH4, depth: int, builder: str = "lbvh",
+                 config: DatapathConfig | None = None):
+        self.bvh = bvh
+        self.depth = int(depth)
+        self.builder = builder
+        self.config = resolve_config(config)
+        #: bumped when the points change; engines re-prepare on it
+        self.version = 0
+        self.index = VectorIndex(bvh.triangles.a, device=bvh.node_lo.device)
+        self._root_vol: float | None = None
+
+    @classmethod
+    def from_points(cls, points, depth: int | None = None, device=None,
+                    builder: str = "lbvh") -> "PointCloudScene":
+        """Build from an ``(N, 3)`` point array on ``device`` (default CUDA,
+        raising without a GPU; pass ``device="cpu"`` for the plain path)."""
+        points = as_f32(points, resolve_device(device))
+        _validate_points_finite(points, "PointCloudScene.from_points")
+        res = build_point_bvh(points, builder, depth)
+        return cls(res.bvh, res.depth, builder=res.builder, config=res.config)
+
+    def refit(self, points) -> "PointCloudScene":
+        raise NotImplementedError(
+            "PointCloudScene.refit is not ported yet; rebuild with "
+            "PointCloudScene.from_points")
+
+    @property
+    def device(self) -> torch.device:
+        return self.bvh.node_lo.device
+
+    @property
+    def points(self) -> torch.Tensor:
+        return self.bvh.triangles.a
+
+    @property
+    def size(self) -> int:
+        return int(self.bvh.triangles.a.shape[0])
+
+    def root_volume(self) -> float:
+        """Volume of the root AABB: the denominator of the auto policy's
+        radius-selectivity estimate."""
+        if self._root_vol is None:
+            ext = (self.bvh.node_hi[0] - self.bvh.node_lo[0]).clamp_min(0.0)
+            self._root_vol = float(ext[0] * ext[1] * ext[2])
+        return self._root_vol
+
+    def engine(self, **kwargs) -> "QueryEngine":
+        return QueryEngine(cloud=self, **kwargs)
+
+    def __repr__(self):
+        return (f"PointCloudScene(size={self.size}, depth={self.depth}, "
+                f"builder={self.builder!r}, device={str(self.device)!r})")
+
+
+class QueryEngine:
+    """Query session over a :class:`Scene`, a :class:`VectorIndex` and/or
+    a :class:`PointCloudScene`.
+
+    ``backend="auto"`` picks the kernel backend for data on a CUDA device
+    and the plain one on the CPU (see the ``resolve_*`` methods).
+    ``chunk_size`` (engine-wide or per call) streams a batch through
+    fixed-size blocks; ``shard`` must be 1 (or None) until sharding is
+    ported.  Zero-row batches return a typed empty result without
+    launching anything.
     """
 
-    def __init__(self, scene: Scene, *, backend: str = "auto",
-                 pad_multiple: int | None = None, shard=None,
-                 chunk_size: int | None = None):
+    #: below this cloud size "auto" keeps neighbour queries on the brute
+    #: path: one small matrix product beats any traversal
+    AUTO_TREE_MIN_POINTS = 4096
+
+    #: "auto" takes the tree only while a query's expected selectivity
+    #: (k/N for nearest, ball volume / root volume for radius queries)
+    #: stays under this
+    AUTO_TREE_MAX_SELECTIVITY = 0.05
+
+    def __init__(self, scene: Scene | None = None,
+                 index: VectorIndex | None = None,
+                 cloud: PointCloudScene | None = None, *,
+                 backend: str = "auto", pad_multiple: int | None = None,
+                 shard=None, chunk_size: int | None = None):
         self.scene = scene
+        self._index = index
+        self.cloud = cloud
         self.default_backend = backend
         check_shards(shard)
         self.default_chunk_size = check_count("chunk_size", chunk_size)
         self.pad_multiple = (DEFAULT_PAD_MULTIPLE if pad_multiple is None
                              else max(1, int(pad_multiple)))
-        self._ctx: dict = {}  # (backend, scene version) -> prepared ctx
+        self._ctx: dict = {}  # (kind, backend, version) -> prepared ctx
+
+    @property
+    def index(self) -> VectorIndex | None:
+        """The explicit index, else the cloud's twin index."""
+        if self._index is None and self.cloud is not None:
+            return self.cloud.index
+        return self._index
+
+    # -- backend resolution ----------------------------------------------
 
     def resolve_trace_backend(self) -> str:
         return "cuda" if self.scene.device.type == "cuda" else "wavefront"
 
-    def _trace_ctx(self, name: str, prepare):
+    def resolve_distance_backend(self) -> str:
+        """The distance kernel for an index on a CUDA device, the plain
+        matmul form on the CPU."""
+        if self.index is None:
+            raise ValueError("QueryEngine has no VectorIndex; construct with "
+                             "QueryEngine(index=...) or VectorIndex.engine()")
+        return "cuda" if self.index.device.type == "cuda" else "mxu"
+
+    def _tree_backend(self) -> str:
+        # The card has no counterpart of the TPU's VMEM budget
+        # (AUTO_PALLAS_SCENE_BYTES): the fused kernel reads the tree from
+        # device memory, so it takes every query the tree takes at all.
+        return "tree_cuda" if self.cloud.device.type == "cuda" else "tree_wavefront"
+
+    def resolve_neighbor_backend(self, kind: str, metric: str,
+                                 k: int | None = None,
+                                 radius: float | None = None) -> str:
+        """The backend "auto" picks for ``nearest`` / ``within`` /
+        ``count_within``: the tree for a euclidean query on a cloud of at
+        least :data:`AUTO_TREE_MIN_POINTS` points whose expected
+        selectivity stays under :data:`AUTO_TREE_MAX_SELECTIVITY`, the
+        distance backends otherwise.  Every route returns the same
+        in-radius sets and neighbour ranks."""
+        if self.cloud is None or metric != "euclidean":
+            return self.resolve_distance_backend()
+        n = self.cloud.size
+        if n < self.AUTO_TREE_MIN_POINTS:
+            return self.resolve_distance_backend()
+        if kind == "nearest":
+            selectivity = (1 if k is None else int(k)) / n
+        else:
+            r = float(radius)
+            ball = 4.0 / 3.0 * math.pi * r**3
+            vol = self.cloud.root_volume()
+            selectivity = ball / vol if (vol > 0.0 and math.isfinite(ball)) else 1.0
+        if selectivity > self.AUTO_TREE_MAX_SELECTIVITY:
+            return self.resolve_distance_backend()
+        return self._tree_backend()
+
+    def _prepared(self, kind: str, name: str, owner, prepare):
+        """``prepare(owner)(owner.bvh)``, once per (backend, version)."""
         if prepare is None:
-            return self.scene.bvh
-        key = (name, self.scene.version)
+            return owner.bvh
+        key = (kind, name, owner.version)
         if key not in self._ctx:
-            self._ctx = {k: v for k, v in self._ctx.items() if k[0] != name}
-            self._ctx[key] = prepare(self.scene)(self.scene.bvh)
+            self._ctx = {k: v for k, v in self._ctx.items() if k[:2] != key[:2]}
+            self._ctx[key] = prepare(owner)(owner.bvh)
         return self._ctx[key]
+
+    def _chunk(self, shard, chunk_size):
+        check_shards(shard)
+        chunk_size = check_count("chunk_size", chunk_size)
+        return self.default_chunk_size if chunk_size is None else chunk_size
+
+    # -- traversal queries -------------------------------------------------
 
     def trace(self, rays: Ray, ray_type: str = "closest", *,
               backend: str | None = None, t_min: float | None = None,
@@ -210,15 +571,15 @@ class QueryEngine:
               chunk_size: int | None = None) -> TraceResult:
         """Traverse a ray batch: ``ray_type`` is ``"closest"`` | ``"any"`` |
         ``"shadow"``.  Results are bit-identical whatever ``chunk_size``."""
+        if self.scene is None:
+            raise ValueError("QueryEngine has no Scene; construct with "
+                             "QueryEngine(scene=...) or Scene.engine()")
         if ray_type not in RAY_TYPES:
             raise ValueError(f"ray_type must be one of {RAY_TYPES}, got {ray_type!r}")
         if t_min is None:
             t_min = default_t_min(ray_type)
         t_min = float(t_min)
-        check_shards(shard)
-        chunk_size = check_count("chunk_size", chunk_size)
-        if chunk_size is None:
-            chunk_size = self.default_chunk_size
+        chunk_size = self._chunk(shard, chunk_size)
         name = backend or self.default_backend
         if name == "auto":
             name = self.resolve_trace_backend()
@@ -245,11 +606,200 @@ class QueryEngine:
         plan = make_plan(n, pad_multiple=self.pad_multiple,
                          chunk_size=chunk_size, lane_multiple=lane_multiple)
         run = build(self.scene, ray_type, t_min, max_rounds)
-        ctx = self._trace_ctx(name, prepare)
+        ctx = self._prepared("trace", name, self.scene, prepare)
         outs = [run(ctx, block) for block in split_blocks(rays, plan)]
         rounds = torch.stack([o.rounds for o in outs]).max()
         rows = concat_rows([o[:-1] for o in outs], n)
         return TraceResult(*rows, rounds=rounds)
 
+    # -- distance queries --------------------------------------------------
+
+    def _distance_fn(self, queries, metric: str, backend: str | None,
+                     epilogue, empty, shard=None,
+                     chunk_size: int | None = None):
+        """Brute-force scores per block of queries, each block's scores
+        reduced by ``epilogue`` to a tuple of per-row results."""
+        index = self.index
+        if index is None:
+            raise ValueError("QueryEngine has no VectorIndex; construct with "
+                             "QueryEngine(index=...) or VectorIndex.engine()")
+        name = backend or self.default_backend
+        if name == "auto":
+            name = self.resolve_distance_backend()
+        if name not in _DISTANCE_BACKENDS:
+            raise ValueError(f"unknown distance backend {name!r} "
+                             f"(registered: {distance_backends()})")
+        q = _on_device(queries, index.device, "queries")
+        chunk_size = self._chunk(shard, chunk_size)
+        n = q.shape[0]
+        if n == 0:  # empty guard: typed empty result, nothing launched
+            return empty()
+        plan = make_plan(n, pad_multiple=self.pad_multiple, chunk_size=chunk_size)
+        score_fn = _DISTANCE_BACKENDS[name](index, metric)
+        return concat_rows([epilogue(score_fn(block))
+                            for (block,) in split_blocks((q,), plan)], n)
+
+    def _tree_neighbor(self, kind: str, queries, k: int, radius, name: str,
+                       shard=None, chunk_size: int | None = None) -> NeighborRecord:
+        """A neighbour query through a registered tree backend: the queries
+        ride as :func:`point_queries` rays, padded and chunked like a trace."""
+        if self.cloud is None:
+            raise ValueError(
+                f"backend {name!r} needs a PointCloudScene; construct with "
+                "QueryEngine(cloud=...) or PointCloudScene.engine()")
+        mode = "nearest" if kind == "nearest" else "within"
+        build, lane_multiple, prepare = _NEIGHBOR_BACKENDS[name]
+        dev = self.cloud.device
+        q = _on_device(queries, dev, "queries")
+        if q.ndim != 2 or q.shape[-1] != 3:
+            raise ValueError(f"tree-backed {kind} expects (M, 3) queries, got "
+                             f"{tuple(q.shape)}")
+        kk = max(1, min(int(k), self.cloud.size))  # k > N pads below
+        chunk_size = self._chunk(shard, chunk_size)
+        n = q.shape[0]
+        if n == 0:  # empty guard: typed empty result, nothing launched
+            return empty_neighbors(k, dev)
+        rays = point_queries(q, radius, device=dev)
+        plan = make_plan(n, pad_multiple=self.pad_multiple,
+                         chunk_size=chunk_size, lane_multiple=lane_multiple)
+        run = build(self.cloud, mode, kk)
+        ctx = self._prepared("neighbor", name, self.cloud, prepare)
+        outs = [run(ctx, block) for block in split_blocks(rays, plan)]
+        rounds = torch.stack([o.rounds for o in outs]).max()
+        rec = NeighborRecord(*concat_rows([o[:-1] for o in outs], n), rounds=rounds)
+        if kk < k:  # pad the clamped top-k axis back out
+            pad = k - kk
+            rec = rec._replace(
+                dist_sq=torch.cat([rec.dist_sq, torch.full(
+                    (n, pad), float("inf"), device=dev)], dim=1),
+                index=torch.cat([rec.index, torch.full(
+                    (n, pad), -1, dtype=torch.int32, device=dev)], dim=1),
+                valid=torch.cat([rec.valid, torch.zeros(
+                    (n, pad), dtype=torch.bool, device=dev)], dim=1))
+        return rec
+
+    def _resolve_neighbor_name(self, kind: str, metric: str, backend,
+                               k=None, radius=None) -> str:
+        name = backend or self.default_backend
+        if name == "auto":
+            name = self.resolve_neighbor_backend(kind, metric, k=k, radius=radius)
+        if name in _NEIGHBOR_BACKENDS and metric != "euclidean":
+            raise ValueError(
+                f"tree backend {name!r} supports metric='euclidean' only, got "
+                f"{metric!r} (use the mxu/cuda brute backends for "
+                "angular/cosine)")
+        return name
+
+    def neighbor_search(self, queries, k: int, radius=None, *,
+                        mode: str = "within", backend: str | None = None,
+                        shard=None, chunk_size: int | None = None) -> NeighborRecord:
+        """Tree-backed neighbour query returning the whole
+        :class:`~repro_torch.core.neighbor.NeighborRecord` (distances,
+        indices, exact in-radius counts and per-query job counters)."""
+        k = check_k(k)
+        if radius is not None:
+            radius = check_radius(radius, "euclidean")
+        name = backend or self.default_backend
+        if name == "auto":
+            if self.cloud is None:
+                raise ValueError("neighbor_search needs a PointCloudScene")
+            name = self._tree_backend()
+        if name not in _NEIGHBOR_BACKENDS:
+            raise ValueError(f"unknown neighbor backend {name!r} "
+                             f"(registered: {neighbor_backends()})")
+        kind = "nearest" if mode == "nearest" else "within"
+        return self._tree_neighbor(kind, queries, k, radius, name,
+                                   shard=shard, chunk_size=chunk_size)
+
+    def _empty(self, k: int):
+        dev = self.index.device
+        return lambda: (torch.zeros((0, k), dtype=torch.float32, device=dev),
+                        torch.zeros((0, k), dtype=torch.int32, device=dev),
+                        torch.zeros((0, k), dtype=torch.bool, device=dev))
+
+    def nearest(self, queries, k: int, metric: str = "euclidean", *,
+                backend: str | None = None, shard=None,
+                chunk_size: int | None = None) -> NearestResult:
+        """Exact k nearest neighbours.  ``k`` is validated eagerly and
+        clamped to the database size (excess slots pad: inf / -inf score,
+        index -1, ``valid`` False).  On a :class:`PointCloudScene`,
+        ``backend="auto"`` routes euclidean queries through the tree when
+        it wins."""
+        if metric not in METRICS:
+            raise ValueError(f"unknown metric: {metric}")
+        k = check_k(k)
+        name = self._resolve_neighbor_name("nearest", metric, backend, k=k)
+        if name in _NEIGHBOR_BACKENDS:
+            rec = self._tree_neighbor("nearest", queries, k, None, name,
+                                      shard=shard, chunk_size=chunk_size)
+            return NearestResult(rec.dist_sq, rec.index, rec.valid)
+
+        def topk(s):
+            scores, idx = select_topk(s, k, metric)
+            return scores, idx, idx >= 0
+
+        return NearestResult(*self._distance_fn(
+            queries, metric, name, topk, self._empty(k), shard=shard,
+            chunk_size=chunk_size))
+
+    def within(self, queries, radius: float, k: int, metric: str = "euclidean",
+               *, backend: str | None = None, shard=None,
+               chunk_size: int | None = None) -> WithinResult:
+        """Fixed-radius query: the best ``k`` in-range neighbours.  NaN or
+        negative euclidean radii and ``k <= 0`` raise; ``k > N`` pads."""
+        if metric not in RADIUS_METRICS:
+            raise ValueError(f"unknown radius metric: {metric}")
+        radius = check_radius(radius, metric)
+        k = check_k(k)
+        name = self._resolve_neighbor_name("within", metric, backend, k=k,
+                                           radius=radius)
+        if name in _NEIGHBOR_BACKENDS:
+            rec = self._tree_neighbor("within", queries, k, radius, name,
+                                      shard=shard, chunk_size=chunk_size)
+            return WithinResult(rec.dist_sq, rec.index, rec.valid)
+        return WithinResult(*self._distance_fn(
+            queries, metric, name,
+            lambda s: select_within(s, radius, k, metric), self._empty(k),
+            shard=shard, chunk_size=chunk_size))
+
+    def count_within(self, queries, radius: float, metric: str = "euclidean",
+                     *, backend: str | None = None, shard=None,
+                     chunk_size: int | None = None) -> torch.Tensor:
+        """How many database points fall within ``radius`` of each query
+        (exact on the tree too: the traversal counts every in-radius leaf)."""
+        if metric not in RADIUS_METRICS:
+            raise ValueError(f"unknown radius metric: {metric}")
+        radius = check_radius(radius, metric)
+        name = self._resolve_neighbor_name("count_within", metric, backend,
+                                           radius=radius)
+        if name in _NEIGHBOR_BACKENDS:
+            return self._tree_neighbor("count_within", queries, 1, radius, name,
+                                       shard=shard, chunk_size=chunk_size).count
+        return self._distance_fn(
+            queries, metric, name,
+            lambda s: (count_within_scores(s, radius, metric),),
+            lambda: (torch.zeros((0,), dtype=torch.int32,
+                                 device=self.index.device),),
+            shard=shard, chunk_size=chunk_size)[0]
+
+    def scores(self, queries, metric: str = "euclidean", *,
+               backend: str | None = None, shard=None,
+               chunk_size: int | None = None) -> torch.Tensor:
+        """The raw (M, N) score matrix (squared distances / similarities)."""
+        if metric not in METRICS:
+            raise ValueError(f"unknown metric: {metric}")
+        return self._distance_fn(
+            queries, metric, backend, lambda s: (s,),
+            lambda: (torch.zeros((0, self.index.size), dtype=torch.float32,
+                                 device=self.index.device),),
+            shard=shard, chunk_size=chunk_size)[0]
+
+    def similarity(self, queries, *, backend: str | None = None, shard=None,
+                   chunk_size: int | None = None) -> torch.Tensor:
+        """Full cosine-similarity matrix (external-divider epilogue)."""
+        return self.scores(queries, "cosine", backend=backend, shard=shard,
+                           chunk_size=chunk_size)
+
     def __repr__(self):
-        return f"QueryEngine(scene={self.scene!r}, backend={self.default_backend!r})"
+        return (f"QueryEngine(scene={self.scene!r}, index={self.index!r}, "
+                f"cloud={self.cloud!r}, backend={self.default_backend!r})")

@@ -62,6 +62,16 @@ class QuadBoxResult(NamedTuple):
     is_intersect: torch.Tensor  # (..., W) bool
 
 
+class PointBoxResult(NamedTuple):
+    """Output of a point/quad-box distance job, the neighbour-search twin
+    of :class:`QuadBoxResult`: ``dist_sq`` from the query point to each box
+    (0 inside, +inf for an inverted pad box), sorted ascending;
+    ``box_index`` links each sorted slot to its input box."""
+
+    dist_sq: torch.Tensor  # (..., 4) f32
+    box_index: torch.Tensor  # (..., 4) i32
+
+
 class TriangleResult(NamedTuple):
     """Output of an OpTriangle job: ``t = t_num / t_denom`` is external."""
 

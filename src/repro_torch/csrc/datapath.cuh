@@ -1,7 +1,8 @@
-// The two traversal stage units of the Ray Tracer Datapath, written once as
-// __device__ functions and shared by the standalone OpQuadbox / OpTriangle
-// kernels (raybox.cu, raytri.cu) and the fused traversal kernel
-// (traverse.cu): one implementation per functional unit.
+// The stage units of the Ray Tracer Datapath, written once as __device__
+// functions and shared by the standalone OpQuadbox / OpTriangle kernels
+// (raybox.cu, raytri.cu), the fused traversal kernel (traverse.cu) and the
+// fused neighbour kernel (neighbor.cu): one implementation per functional
+// unit.
 //
 // Rounding: the paper rounds after every functional unit, and so does the
 // plain PyTorch version (one eager op per stage).  Every add, multiply and
@@ -62,6 +63,37 @@ __device__ __forceinline__ void op_quadbox(const float org[3], const float inv[3
   cas(tmin, idx, hit, 0, 2);
   cas(tmin, idx, hit, 1, 3);
   cas(tmin, idx, hit, 1, 2);
+}
+
+// Point-vs-4-AABB squared distance, the neighbour-search twin of
+// OpQuadbox: per axis the gap is max(lo - p, max(p - hi, 0)) through
+// comparators, so an inverted pad box (lo = +inf, hi = -inf) gives +inf;
+// the squared distance is (sq0 + sq1) + sq2.  The same quad-sort network
+// orders the four children near to far.  `hit` is the sort's third
+// payload, unused here.
+__device__ __forceinline__ void point_box_test(const float p[3], const float lo[4][3],
+                                               const float hi[4][3], float dist[4],
+                                               int idx[4]) {
+  int unused[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    float sq[3];
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      const float below = __fsub_rn(lo[b][d], p[d]);
+      const float above = __fsub_rn(p[d], hi[b][d]);
+      const float gap = cmp_max(below, cmp_max(above, 0.0f));
+      sq[d] = __fmul_rn(gap, gap);
+    }
+    dist[b] = __fadd_rn(__fadd_rn(sq[0], sq[1]), sq[2]);
+    idx[b] = b;
+    unused[b] = 0;
+  }
+  cas(dist, idx, unused, 0, 1);
+  cas(dist, idx, unused, 2, 3);
+  cas(dist, idx, unused, 0, 2);
+  cas(dist, idx, unused, 1, 3);
+  cas(dist, idx, unused, 1, 2);
 }
 
 __device__ __forceinline__ float select_dim(const float v[3], int k) {

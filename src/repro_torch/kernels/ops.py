@@ -1,11 +1,16 @@
-"""Typed wrappers of the stage kernels: records in, records out.
+"""Typed wrappers of the stage and distance kernels: records in, records
+out.
 
-The port's counterpart of ``repro/kernels/ops.py`` for OpQuadbox and
-OpTriangle.  User code speaks ``Ray`` / ``Box`` / ``Triangle``; the
-kernels speak rows-by-jobs.  The ``*_operands`` functions pack and pad
-the job count to a multiple of :data:`~repro_torch.kernels.common.LANES`
-(padding jobs are benign: zero boxes, unit inverse / shear); the
-``*_kernel`` functions launch on those operands and slice back.
+The port's counterpart of ``repro/kernels/ops.py`` for OpQuadbox,
+OpTriangle and the batched OpEuclidean / OpAngular.  User code speaks
+``Ray`` / ``Box`` / ``Triangle``; the stage kernels speak rows-by-jobs.
+The ``*_operands`` functions pack and pad the job count to a multiple of
+:data:`~repro_torch.kernels.common.LANES` (padding jobs are benign: zero
+boxes, unit inverse / shear); the ``*_kernel`` functions launch on those
+operands and slice back.  The distance wrappers need no padding: unlike
+the reference's ``_pad2d`` route, the distance and norm kernels mask the
+ragged edges of M, N and D themselves (zero features would add exact
+zeros, so the values are the same either way).
 """
 from __future__ import annotations
 
@@ -13,6 +18,7 @@ import torch
 
 from ..core.types import Box, QuadBoxResult, Ray, Triangle, TriangleResult
 from .common import LANES, ceil_to, pad_cols
+from .distance import distance_cuda, norms_cuda
 from .raybox import raybox
 from .raytri import raytri
 
@@ -60,3 +66,19 @@ def ray_triangle_kernel(ray: Ray, tri: Triangle) -> TriangleResult:
     t_num, t_denom, hit = raytri(*ray_triangle_operands(ray, tri))
     return TriangleResult(t_num=t_num[:n], t_denom=t_denom[:n],
                           hit=hit[:n].bool())
+
+
+def euclidean_kernel(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Pairwise squared distances (M, D) x (N, D) -> (M, N), kernel-backed."""
+    return distance_cuda(q.contiguous(), c.contiguous(), mode="euclidean")
+
+
+def dot_kernel(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """OpAngular's dot products alone (M, N), kernel-backed: the distance
+    backend's path, whose norms come precomputed with the index."""
+    return distance_cuda(q.contiguous(), c.contiguous(), mode="angular")
+
+
+def angular_kernel(q: torch.Tensor, c: torch.Tensor):
+    """OpAngular batched: ((M, N) dots, (N,) norms), kernel-backed."""
+    return dot_kernel(q, c), norms_cuda(c.contiguous())[0]

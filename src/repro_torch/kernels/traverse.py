@@ -1,22 +1,29 @@
-"""Fused traversal kernel wrapper (``csrc/traverse.cu``) and its packing.
+"""Fused traversal and neighbour kernel wrappers (``csrc/traverse.cu``,
+``csrc/neighbor.cu``) and their packing.
 
-The port's counterpart of ``repro/kernels/traverse.py`` (the ray-tracing
-half; the neighbor-search kernel comes in a later slice).  Host side,
-:func:`pack_rays` and :func:`pack_bvh` build the reference's operands:
-a ``(16, n_pad)`` union of ray rows, node boxes as rows-by-nodes, the leaf
-table, and the triangle soup as 9 vertex rows, each padded to a multiple
-of :data:`~repro_torch.kernels.common.LANES`.  :func:`traverse_packed`
-launches the CUDA kernel on CUDA operands, one thread per ray; on CPU
-operands it runs the kernel's plain version, ``core.wavefront.
-trace_wavefront``, on the unpacked tree and rays.
+The port's counterpart of ``repro/kernels/traverse.py``.  Host side,
+:func:`pack_rays`, :func:`pack_bvh` and :func:`pack_point_bvh` build the
+reference's operands: a ``(16, n_pad)`` union of ray rows, node boxes as
+rows-by-nodes, the leaf table, and the triangle soup as 9 vertex rows (or
+the point cloud as 4 rows x, y, z, ||c||^2), each padded to a multiple of
+:data:`~repro_torch.kernels.common.LANES`.  :func:`traverse_packed` and
+:func:`neighbor_packed` launch the CUDA kernels on CUDA operands, one
+thread per ray or query.  On CPU operands :func:`traverse_packed` runs
+its kernel's plain version, ``core.wavefront.trace_wavefront``, on the
+unpacked tree and rays; :func:`neighbor_packed` raises, and
+:func:`neighbor_fused` runs ``core.neighbor.neighbor_wavefront`` on the
+CPU tree it was given.
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core.bvh import BVH4, DatapathConfig, level_offset, num_nodes, resolve_config
+from ..core.neighbor import (PRUNE_SLACK, NeighborRecord, check_neighbor_args,
+                             empty_neighbors, neighbor_wavefront, point_sq_norms)
 from ..core.types import Ray, Triangle
 from ..core.wavefront import (RAY_TYPES, WavefrontRecord, default_t_min,
                               trace_wavefront)
@@ -169,3 +176,102 @@ def traverse_fused(bvh: BVH4, rays: Ray, depth: int, *,
                            ray_type=ray_type, t_min=t_min,
                            max_rounds=max_rounds, config=config)
 
+
+
+# ---------------------------------------------------------------------------
+# Fused neighbour traversal: kNN / radius queries over a point BVH4
+# ---------------------------------------------------------------------------
+
+
+class PackedPointBVH(NamedTuple):
+    """The neighbour kernel's tree operands (see :func:`pack_point_bvh`)."""
+
+    nlo: torch.Tensor  # (3, nodes_pad) f32, padding columns +inf
+    nhi: torch.Tensor  # (3, nodes_pad) f32, padding columns -inf
+    leaf: torch.Tensor  # (1, leaf_pad) i32, padding -1
+    pts: torch.Tensor  # (4, pts_pad) f32: rows x | y | z | ||c||^2
+
+
+def pack_point_bvh(bvh: BVH4) -> PackedPointBVH:
+    """Point BVH4 -> the neighbour kernel's operands.  Nodes and leaves pack
+    as in :func:`pack_bvh`; the cloud packs as 4 rows, so each candidate's
+    gather also lands its squared norm, derived here from the same array
+    the tree holds."""
+    nodes_pad = ceil_to(bvh.node_lo.shape[0], LANES)
+    inf = float("inf")
+    nlo = pad_cols(bvh.node_lo.T, nodes_pad, inf).contiguous()
+    nhi = pad_cols(bvh.node_hi.T, nodes_pad, -inf).contiguous()
+    leaf_pad = ceil_to(bvh.leaf_tri.shape[0], LANES)
+    leaf = pad_cols(bvh.leaf_tri[None, :].to(torch.int32), leaf_pad, -1)
+    pts = bvh.triangles.a
+    rows = torch.cat([pts.T, point_sq_norms(pts)[None, :]], dim=0)
+    pts_rows = pad_cols(rows, ceil_to(pts.shape[0], LANES))
+    return PackedPointBVH(nlo, nhi, leaf.contiguous(), pts_rows.contiguous())
+
+
+def neighbor_packed(packed: PackedPointBVH, queries: Ray, depth: int, k: int,
+                    *, mode: str = "within",
+                    max_rounds: int | None = None) -> NeighborRecord:
+    """Neighbour-search a query batch through the fused kernel on
+    pre-packed point-BVH operands, which must lie on a CUDA device (the
+    CPU route is :func:`neighbor_fused`'s, or the ``tree_wavefront``
+    backend's).  Same contract as ``neighbor_wavefront`` (its plain
+    version, whose record it returns bit for bit).  ``rounds`` is
+    ``max(box_jobs)``: a query is active from round 0 for exactly
+    ``box_jobs`` consecutive rounds."""
+    check_neighbor_args(k, mode)
+    if max_rounds is None:
+        max_rounds = level_offset(depth)
+    n = queries.origin.shape[0]
+    device = queries.origin.device
+    if not (device.type == "cuda" and packed.pts.is_cuda):
+        raise ValueError(f"neighbor_packed runs the CUDA kernel: expected CUDA "
+                         f"operands, got queries on {device} and the tree on "
+                         f"{packed.pts.device}")
+    if n == 0:
+        return empty_neighbors(k, device)
+    n_pad = ceil_to(n, LANES)
+    ray_op = pack_rays(queries, n_pad)
+
+    f32, i32 = torch.float32, torch.int32
+    nodes_pad, leaf_pad, pts_pad = (packed.nlo.shape[1], packed.leaf.shape[1],
+                                    packed.pts.shape[1])
+    ptr_rays = nvcc.check_cuda("rays", ray_op, f32, (N_RAY_ROWS, n_pad))
+    ptr_nlo = nvcc.check_cuda("nlo", packed.nlo, f32, (3, nodes_pad))
+    ptr_nhi = nvcc.check_cuda("nhi", packed.nhi, f32, (3, nodes_pad))
+    ptr_leaf = nvcc.check_cuda("leaf", packed.leaf, i32, (1, leaf_pad))
+    ptr_pts = nvcc.check_cuda("pts", packed.pts, f32, (4, pts_pad))
+    if nodes_pad < num_nodes(depth) or leaf_pad < 4**depth:
+        raise ValueError(f"packed tree too small for depth {depth}")
+    dist = torch.empty((k, n), dtype=f32, device=device)
+    index = torch.empty((k, n), dtype=i32, device=device)
+    count = torch.empty((n,), dtype=i32, device=device)
+    box = torch.empty((n,), dtype=i32, device=device)
+    pt = torch.empty((n,), dtype=i32, device=device)
+    # the plain version's two pruning constants, rounded to f32 as it
+    # rounds them (a Python float against an f32 tensor)
+    slack_mul = float(np.float32(1.0 + PRUNE_SLACK))
+    slack_add = float(np.float32(PRUNE_SLACK))
+    nvcc.launch("rayflex_neighbor", ptr_rays, n_pad, n, ptr_nlo, ptr_nhi,
+                nodes_pad, ptr_leaf, 4**depth, ptr_pts, pts_pad,
+                level_offset(depth - 1), level_offset(depth), int(max_rounds),
+                int(k), int(mode == "nearest"), slack_mul, slack_add,
+                dist.data_ptr(), index.data_ptr(), count.data_ptr(),
+                box.data_ptr(), pt.data_ptr())
+    return NeighborRecord(dist_sq=dist.T, index=index.T, valid=index.T >= 0,
+                          count=count, box_jobs=box, point_jobs=pt,
+                          rounds=box.max())
+
+
+def neighbor_fused(bvh: BVH4, queries: Ray, depth: int, k: int, *,
+                   mode: str = "within",
+                   max_rounds: int | None = None) -> NeighborRecord:
+    """:func:`neighbor_packed` that packs the tree per call; repeated
+    queries on one cloud should go through the session engine, which packs
+    once per cloud version.  On a CPU tree it runs the kernel's plain
+    version, ``neighbor_wavefront``."""
+    if not bvh.node_lo.is_cuda:
+        return neighbor_wavefront(bvh, point_sq_norms(bvh.triangles.a), queries,
+                                  depth, k, mode=mode, max_rounds=max_rounds)
+    return neighbor_packed(pack_point_bvh(bvh), queries, depth, k, mode=mode,
+                           max_rounds=max_rounds)

@@ -6,8 +6,13 @@ machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Both sides round every op (the kernels are built with ``-fmad=false``
-and explicit round-to-nearest intrinsics), so every field is bit-equal.
+The traversal and neighbour kernels round every op as their plain
+versions do (``-fmad=false`` and explicit round-to-nearest intrinsics),
+so every field is bit-equal.  The distance and norm kernels sum in
+another order than their plain versions (one matmul per 128-wide K
+block), so their scores are held to ``1e-5 * (|q|^2 + |c|^2)`` for
+squared distances, ``1e-5 * |q| |c|`` for dot products and ``1e-5 |c|^2``
+for norms.
 """
 import os
 
@@ -15,12 +20,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import RAY_TYPES, Scene, make_ray
+from repro_torch.api import RAY_TYPES, PointCloudScene, Scene, VectorIndex, make_ray
+from repro_torch.core.neighbor import neighbor_wavefront, point_queries, point_sq_norms
 from repro_torch.core.wavefront import trace_wavefront
 from repro_torch.kernels import nvcc
+from repro_torch.kernels.distance import (MODES, distance_cuda, distance_plain,
+                                          norms_cuda, norms_plain)
 from repro_torch.kernels.raybox import raybox, raybox_plain
 from repro_torch.kernels.raytri import raytri, raytri_plain
-from repro_torch.kernels.traverse import pack_bvh, traverse_packed
+from repro_torch.kernels.traverse import (neighbor_packed, pack_bvh, pack_point_bvh,
+                                          traverse_packed)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 pytestmark = pytest.mark.cuda
@@ -99,3 +108,85 @@ def test_wrappers_check_their_operands(cuda):
         raybox(x3, x3, x3, x12.T.contiguous().T, x12)
     with pytest.raises(ValueError, match="CUDA"):
         raytri(x3, x3.cpu(), x3.int(), x3, x3, x3)
+
+
+def _score_scale(q, c, mode):
+    q2 = (q.double() ** 2).sum(1)
+    c2 = (c.double() ** 2).sum(1)
+    if mode == "euclidean":
+        return q2[:, None] + c2[None, :]
+    return q2.sqrt()[:, None] * c2.sqrt()[None, :]
+
+
+@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (77, 301, 37), (130, 257, 200)])
+def test_distance_and_norm_kernels_match_plain_at_ragged_shapes(cuda, m, n, d):
+    rng = np.random.default_rng(m + n + d)
+    q = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32), device=cuda)
+    c = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=cuda)
+    before = nvcc.launch_counts().get("distance", 0)
+    for mode in MODES:
+        got, want = distance_cuda(q, c, mode=mode), distance_plain(q, c, mode)
+        assert got.shape == (m, n)
+        assert ((got - want).abs().double() <= 1e-5 * _score_scale(q, c, mode)).all()
+    assert nvcc.launch_counts()["distance"] == before + len(MODES)
+    got, want = norms_cuda(c), norms_plain(c)
+    assert got.shape == (1, n)
+    assert ((got - want).abs() <= 1e-5 * want).all()
+
+
+def _cloud(cuda, n=6000, seed=3):
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-4, 4, (40, 3))
+    pts = (np.repeat(centres, n // 40, axis=0)
+           + rng.normal(scale=0.06, size=(n, 3))).astype(np.float32)
+    return pts, PointCloudScene.from_points(pts, device=cuda)
+
+
+@pytest.mark.parametrize("k", [1, 16, 64])
+def test_neighbor_kernel_bit_equal_to_plain(cuda, k):
+    pts, cloud = _cloud(cuda)
+    queries = np.concatenate([pts[:1500], pts[:1000] + 0.01]).astype(np.float32)
+    packed = pack_point_bvh(cloud.bvh)
+    sq = point_sq_norms(cloud.points)
+    for mode, radius in (("nearest", None), ("within", 0.05), ("nearest", 0.1)):
+        rays = point_queries(queries, radius, device=cuda)
+        before = nvcc.launch_counts().get("neighbor", 0)
+        got = neighbor_packed(packed, rays, cloud.depth, k, mode=mode)
+        want = neighbor_wavefront(cloud.bvh, sq, rays, cloud.depth, k, mode)
+        assert nvcc.launch_counts()["neighbor"] == before + 1
+        for f in want._fields:
+            assert _bits_equal(getattr(got, f), getattr(want, f)), (mode, f)
+
+
+def test_engine_kernel_backends_match_plain_backends(cuda):
+    rng = np.random.default_rng(7)
+    db = rng.normal(size=(3000, 100)).astype(np.float32)
+    q = torch.as_tensor(rng.normal(size=(300, 100)).astype(np.float32), device=cuda)
+    index = VectorIndex.from_database(db, device=cuda)
+    eng = index.engine(chunk_size=128)
+    assert eng.resolve_distance_backend() == "cuda"
+    nvcc.reset_launches()
+    for metric in ("euclidean", "angular", "cosine"):
+        oracle = eng.scores(q, metric, backend="mxu")
+        got = eng.nearest(q, 10, metric)
+        want = eng.nearest(q, 10, metric, backend="mxu")
+        picked = torch.gather(oracle, 1, got.indices.long())
+        scale = 1e-5 * (_score_scale(q, index.database, metric).max()
+                        if metric != "cosine" else 1.0)
+        assert ((picked - want.scores).abs() <= scale).all(), metric
+    assert nvcc.launch_counts()["distance"] >= 3 * 3  # three chunks per metric
+
+    pts, cloud = _cloud(cuda)
+    ceng = cloud.engine(chunk_size=2048)
+    qp = torch.as_tensor(pts[::3] + 0.01, device=cuda)
+    assert ceng.resolve_neighbor_backend("nearest", "euclidean", k=16) == "tree_cuda"
+    nvcc.reset_launches()
+    for kind in ("nearest", "within"):
+        radius = None if kind == "nearest" else 0.05
+        got = ceng.neighbor_search(qp, 16, radius, mode=kind)
+        want = ceng.neighbor_search(qp, 16, radius, mode=kind, backend="tree_wavefront")
+        for f in want._fields:
+            assert _bits_equal(getattr(got, f), getattr(want, f)), (kind, f)
+    assert nvcc.launch_counts()["neighbor"] == 2 * 1  # 2000 queries: one chunk
+    counts = ceng.count_within(qp, 0.05)
+    assert torch.equal(counts, ceng.count_within(qp, 0.05, backend="tree_wavefront"))
