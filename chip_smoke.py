@@ -45,6 +45,17 @@ Phases (any failure exits non-zero and prints no result line):
    the tree's own f32 rounding, ``16 u (|q|^2 + (|q| + rho)^2)``, which
    must stay below r^2 on every checked query; ``nearest``
    rank-equivalent;
+9. the unified mixed-opcode stream (Table V) through
+   ``kernels.ops.unified_datapath``: 128 lane-streams, ~105k beats merged
+   in a seeded random order from four sources that each keep their own
+   order: 2^20 OpEuclidean pairs of phase 7's sift-shape vectors (8 beats
+   each), 2^18 OpAngular pairs of its glove-shape vectors (13 beats), the
+   OpQuadbox jobs of phase 5's box lights and its OpTriangle light-facing
+   jobs.  The kernel's output is held bit-equal to ``unified_plain`` on
+   every row; each pair's final accumulators bit-equal to the port's
+   multi-beat forms and within a bound of a float64 witness; the box and
+   triangle beats bit-equal to the standalone stage kernels.  A stream of
+   the same length with no reset (the kernel's worst case) is timed too;
 
 then one JSON ``kernels`` line (launches on each kernel's path, times,
 errors, bounds, library times) and the ``{"ok": true, "device": ...}``
@@ -115,6 +126,16 @@ NEIGH_QUERY_BYTES, NEIGH_BOX_BYTES, NEIGH_POINT_BYTES = 16 + 12, 96, 20
 #: push compares) and of one point job (6 products and sums, the
 #: expanded form, the clamp, the radius and insertion compares)
 NEIGH_BOX_OPS, NEIGH_POINT_OPS = 4 * 17 + 5 + 4 + 4, 12
+# phase 9: the unified stream
+STREAM_SEED = 20240910
+E_PAIRS, A_PAIRS = 1 << 20, 1 << 18  # euclidean (sift-shape), angular (glove-shape)
+#: operand rows a job of each opcode reads (triangle, quadbox, euclidean,
+#: angular; of the 48) and output rows every job writes
+STREAM_ROWS_IN, STREAM_ROWS_OUT = (18, 33, 34, 18), 16
+#: f32 operations of a job of each opcode (euclidean: 16 subtracts, 16
+#: squares, 15 tree adds, the accumulator add; angular: 16 products, 14
+#: tree adds, 2 accumulator adds)
+STREAM_OPS = (RAYTRI_OPS, RAYBOX_OPS, 48, 32)
 
 
 def fail(msg: str) -> None:
@@ -511,7 +532,7 @@ def phase_main_path(torch):
     say(f"phase 6 stage kernels on the frame's inputs: OpQuadbox {n_rb} jobs, "
         f"OpTriangle {n_rt} jobs, each bit-equal to its plain version")
 
-    return [
+    rows = [
         kernel_row("raybox", "raybox.cu", "src/repro/kernels/raybox.py:22",
                    launches, rb_ms, rb_plain_ms, rb_err,
                    bound_ms(n_rb * RAYBOX_BYTES, n_rb * RAYBOX_OPS)),
@@ -521,6 +542,8 @@ def phase_main_path(torch):
         kernel_row("traverse", "traverse.cu", "src/repro/kernels/traverse.py:95",
                    launches, trav_ms, trav_plain_ms, trav_err, trav_bound),
     ]
+    stage_jobs = {k: fr[k] for k in ("primary", "emitters", "to_tri", "corners")}
+    return rows, stage_jobs
 
 
 def kernel_row(name, source, replaces, launches, ms, plain_ms, err, bound,
@@ -702,6 +725,7 @@ def phase_brute(torch):
     build_ms = wall_ms(lambda: VectorIndex.from_database(sift_db, device="cuda"))
     say(f"phase 7 VectorIndex.from_database (sift, copy in + norms): "
         f"{build_ms:.3f} ms")
+    vectors = (sift_db, sift_q, glove_db, glove_q)  # on the host: phase 8 runs first
     return [
         kernel_row("distance", "distance.cu", "src/repro/kernels/distance.py:33",
                    launches, dist_ms, dist_plain_ms, dist_err, dist_bound,
@@ -709,7 +733,7 @@ def phase_brute(torch):
         kernel_row("norm", "distance.cu", "src/repro/kernels/distance.py:65",
                    launches, norm_ms, norm_plain_ms, norm_err, norm_bound,
                    norm_lib_ms),
-    ]
+    ], vectors
 
 
 # ---------------------------------------------------------------------------
@@ -866,6 +890,206 @@ def phase_tree(torch):
                        bound)]
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the unified mixed-opcode stream
+# ---------------------------------------------------------------------------
+
+
+def stream_jobs(torch, stage_jobs, vectors):
+    """The merged stream as a (T, 128) ``DatapathJob``, and where each
+    source's beats landed.  Source beats keep their order; the merge order
+    is a seeded random permutation of the sources' beat labels."""
+    from repro_torch.core.stream import make_jobs
+    from repro_torch.core.types import OP_ANGULAR, OP_EUCLIDEAN, OP_QUADBOX, OP_TRIANGLE
+    from repro_torch.kernels.common import LANES
+
+    rng = np.random.default_rng(STREAM_SEED)
+    sift_db, sift_q, glove_db, glove_q = vectors
+
+    def pairs(q, db, n):
+        """n (query, database row) pairs drawn from the seed, on the card."""
+        qi, ci = rng.integers(0, q.shape[0], n), rng.integers(0, db.shape[0], n)
+        return torch.as_tensor(q[qi], device="cuda"), torch.as_tensor(db[ci], device="cuda")
+
+    ea, eb = pairs(sift_q, sift_db, E_PAIRS)
+    aa, ab = pairs(glove_q, glove_db, A_PAIRS)
+    e_beats, a_beats = -(-ea.shape[1] // 16), -(-aa.shape[1] // 8)  # per pair
+    primary, emitters = stage_jobs["primary"], stage_jobs["emitters"]
+    to_tri, corners = stage_jobs["to_tri"], stage_jobs["corners"]
+    n_box, n_tri = primary.origin.shape[0], to_tri.origin.shape[0]
+    beats = {OP_EUCLIDEAN: E_PAIRS // LANES * e_beats, OP_ANGULAR: A_PAIRS // LANES * a_beats,
+             OP_QUADBOX: -(-n_box // LANES), OP_TRIANGLE: -(-n_tri // LANES)}
+    labels = rng.permutation(np.repeat(list(beats), list(beats.values())))
+    t = labels.shape[0]
+    jobs = make_jobs((t, LANES), device="cuda")
+    jobs.opcode.copy_(torch.as_tensor(labels, device="cuda")[:, None].expand(t, LANES))
+    pos = {op: torch.as_tensor(np.flatnonzero(labels == op), device="cuda") for op in beats}
+    lanes = torch.arange(LANES, device="cuda")
+
+    def place(leaf, op, values):
+        """Write ``values`` (jobs in source order, beat-major) into the
+        columns of the beats of source ``op``."""
+        flat = (pos[op][:, None] * LANES + lanes).reshape(-1)[:values.shape[0]]
+        leaf.view((-1,) + tuple(leaf.shape[2:]))[flat] = values
+
+    def vector_beats(x, width, n_beats):
+        """(pairs, D) -> one job per (pair beat, lane), in source order:
+        pair = slot * 128 + lane, beats of a pair consecutive."""
+        x = torch.nn.functional.pad(x, (0, n_beats * width - x.shape[1]))
+        x = x.view(-1, LANES, n_beats, width).permute(0, 2, 1, 3)
+        return x.reshape(-1, width)
+
+    beat_in_pair = lambda op, n_beats: (
+        torch.arange(beats[op], device="cuda") % n_beats)[:, None].expand(-1, LANES).reshape(-1)
+    place(jobs.vec_a, OP_EUCLIDEAN, vector_beats(ea, 16, e_beats))
+    place(jobs.vec_b, OP_EUCLIDEAN, vector_beats(eb, 16, e_beats))
+    place(jobs.reset_accum, OP_EUCLIDEAN, beat_in_pair(OP_EUCLIDEAN, e_beats) == 0)
+    k = beat_in_pair(OP_ANGULAR, a_beats)
+    live = aa.shape[1] - 8 * (a_beats - 1)  # live lanes of a pair's last beat
+    count = torch.where(k == a_beats - 1, live, 8)
+    pad8 = lambda x: torch.nn.functional.pad(x, (0, 8))
+    place(jobs.vec_a, OP_ANGULAR, pad8(vector_beats(aa, 8, a_beats)))
+    place(jobs.vec_b, OP_ANGULAR, pad8(vector_beats(ab, 8, a_beats)))
+    place(jobs.mask, OP_ANGULAR, torch.arange(16, device="cuda") < count[:, None])
+    place(jobs.reset_accum, OP_ANGULAR, k == 0)
+    for op, ray in ((OP_QUADBOX, primary), (OP_TRIANGLE, to_tri)):
+        for leaf, values in zip(jobs.ray, ray):
+            place(leaf, op, values)
+    place(jobs.boxes.lo, OP_QUADBOX, emitters.lo)
+    place(jobs.boxes.hi, OP_QUADBOX, emitters.hi)
+    for leaf, values in zip(jobs.triangle, corners):
+        place(leaf, OP_TRIANGLE, values)
+    return jobs, pos, beats, {OP_EUCLIDEAN: e_beats, OP_ANGULAR: a_beats}, (ea, eb, aa, ab)
+
+
+def phase_stream(torch, stage_jobs, vectors):
+    from repro_torch.core.datapath import angular_distance_parts, euclidean_distance_sq
+    from repro_torch.core.types import OP_ANGULAR, OP_EUCLIDEAN, OP_QUADBOX, OP_TRIANGLE
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.common import LANES, N_OPERAND_ROWS
+    from repro_torch.kernels.ops import (pack_unified, ray_box_kernel,
+                                         ray_triangle_kernel, unified_datapath)
+    from repro_torch.kernels.unified import unified, unified_plain
+
+    jobs, pos, beats, per_pair, (ea, eb, aa, ab) = stream_jobs(torch, stage_jobs, vectors)
+    t = jobs.opcode.shape[0]
+    n_jobs = t * LANES
+    torch.cuda.synchronize()
+
+    # ---- one counted drive of the path -------------------------------------
+    nvcc.reset_launches()
+    out = unified_datapath(jobs)
+    torch.cuda.synchronize()
+    launches = nvcc.launch_counts()
+    if launches.get("unified", 0) < 1:
+        fail(f"the unified path launched no unified kernel ({launches})")
+    for f in out._fields:
+        if getattr(out, f).shape[:2] != (t, LANES):
+            fail(f"unified_datapath: malformed {f} {tuple(getattr(out, f).shape)}")
+    for f in ("tmin", "t_num", "t_denom", "euclidean_accumulator",
+              "angular_dot_product", "angular_norm"):
+        if bool(torch.isnan(getattr(out, f)).any()):
+            fail(f"unified_datapath: NaN in {f}")
+
+    # ---- gate 1: the kernel bit-equal to unified_plain, every row ----------
+    opcodes, operands = pack_unified(jobs)
+    ms, k_out = event_ms(lambda: unified(opcodes, operands))
+    plain_ms, p_out = event_ms(lambda: unified_plain(opcodes, operands), reps=1)
+    err = same_bits(f"unified kernel vs unified_plain on all {t} beats, 16 rows",
+                    (k_out,), (p_out,))
+    del p_out
+    if not torch.equal(bits(out.euclidean_accumulator.reshape(-1)), bits(k_out[0])) or \
+            not torch.equal(out.box_index.reshape(-1, 4).T.float(), k_out[4:8]):
+        fail("unified_datapath's records differ from the kernel's output rows")
+
+    # ---- gates 2 and 3: each pair's final accumulators ---------------------
+    def final(field, op):
+        """Each pair's last beat's ``field``, in pair order."""
+        last = pos[op].view(-1, per_pair[op])[:, -1]
+        return getattr(out, field)[last].reshape(-1)
+
+    e_got = final("euclidean_accumulator", OP_EUCLIDEAN)
+    same_bits(f"final euclidean accumulator vs euclidean_distance_sq on {E_PAIRS} pairs",
+              (e_got,), (euclidean_distance_sq(ea, eb),))
+    # float64 witness in the direct form; the port's f32 sum carries at most
+    # 3 roundings per term (subtract, square) and 12 adds (4 tree levels, 8
+    # beats), so it lies within 16 u of the exact sum of its terms
+    e_wit = ((ea.double() - eb.double()) ** 2).sum(1)
+    e_bound = 16 * U_F32 * e_wit
+    e_err = (e_got.double() - e_wit).abs()
+    if bool((e_err > e_bound).any()):
+        fail(f"euclidean accumulators outside 16 u of the float64 witness "
+             f"({int((e_err > e_bound).sum())} pairs)")
+    d_got = final("angular_dot_product", OP_ANGULAR)
+    n_got = final("angular_norm", OP_ANGULAR)
+    d_ref, n_ref = angular_distance_parts(aa, ab)
+    same_bits(f"final angular dot / norm vs angular_distance_parts on {A_PAIRS} pairs",
+              (d_got, n_got), (d_ref, n_ref))
+    qn, cn = aa.double().norm(dim=1), ab.double().norm(dim=1)
+    d_err = (d_got.double() - (aa.double() * ab.double()).sum(1)).abs()
+    n_err = (n_got.double() - cn * cn).abs()
+    if bool((d_err > 1e-5 * qn * cn).any()) or bool((n_err > 1e-5 * cn * cn).any()):
+        fail("angular accumulators outside 1e-5 |q||c| / 1e-5 |c|^2 of the float64 witness")
+    say(f"phase 9 check: {t} beats x {LANES} lane-streams ({n_jobs} jobs; "
+        f"{beats[OP_EUCLIDEAN]} euclidean, {beats[OP_ANGULAR]} angular, "
+        f"{beats[OP_QUADBOX]} quadbox, {beats[OP_TRIANGLE]} triangle beats): kernel "
+        f"bit-equal to unified_plain on all 16 rows; the final accumulators of all "
+        f"{E_PAIRS} euclidean and {A_PAIRS} angular pairs bit-equal to "
+        f"euclidean_distance_sq / angular_distance_parts; largest |err| against the "
+        f"float64 witness: euclidean {float(e_err.max()):.6g} (bound 16 u d^2, "
+        f"largest {float((e_err / e_wit.clamp_min(1e-30)).max()):.4g} d^2), dot "
+        f"{float((d_err / (qn * cn)).max()):.4g} |q||c|, norm "
+        f"{float((n_err / (cn * cn)).max()):.4g} |c|^2")
+    del e_wit, e_err, d_err, n_err
+
+    # ---- gate 4: box and triangle beats against the stage kernels ----------
+    primary, emitters = stage_jobs["primary"], stage_jobs["emitters"]
+    to_tri, corners = stage_jobs["to_tri"], stage_jobs["corners"]
+    qb = ray_box_kernel(primary, emitters)
+    take = lambda x, op, n: x[pos[op]].reshape((-1,) + tuple(x.shape[2:]))[:n]
+    n_box, n_tri = primary.origin.shape[0], to_tri.origin.shape[0]
+    same_bits("the stream's quadbox beats vs the raybox kernel",
+              (take(out.tmin, OP_QUADBOX, n_box), take(out.box_index, OP_QUADBOX, n_box),
+               take(out.is_intersect, OP_QUADBOX, n_box)), qb)
+    tr = ray_triangle_kernel(to_tri, corners)
+    same_bits("the stream's triangle beats vs the raytri kernel",
+              (take(out.t_num, OP_TRIANGLE, n_tri), take(out.t_denom, OP_TRIANGLE, n_tri),
+               take(out.triangle_hit, OP_TRIANGLE, n_tri)), tr)
+    say(f"phase 9 check: the {n_box} quadbox and {n_tri} triangle jobs bit-equal to "
+        f"the standalone raybox / raytri kernels on the same jobs")
+
+    # ---- timings -----------------------------------------------------------
+    e2e_ms = wall_ms(lambda: unified_datapath(jobs))
+    op_beats = torch.bincount(opcodes.long(), minlength=4).cpu().tolist()
+    n_bytes = 4.0 * t + 4.0 * LANES * sum(
+        b * (STREAM_ROWS_IN[op] + STREAM_ROWS_OUT) for op, b in enumerate(op_beats))
+    bound = bound_ms(n_bytes, LANES * sum(b * STREAM_OPS[op] for op, b in enumerate(op_beats)))
+    say(f"phase 9 unified_datapath (pack, kernel, unpack): {e2e_ms:.3f} ms per call of "
+        f"{n_jobs} jobs (median of {TIMED_REPS}), {n_jobs / e2e_ms * 1e3:.6g} jobs/s; "
+        f"operands {N_OPERAND_ROWS * n_jobs * 4 / 1e9:.3f} GB, output "
+        f"{16 * n_jobs * 4 / 1e9:.3f} GB")
+    say(f"phase 9 unified kernel: {ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}; "
+        f"{n_bytes / 1e9:.4f} GB of live operand rows and outputs), plain "
+        f"{plain_ms:.1f} ms (one run after a warm-up)")
+    del jobs, out, opcodes, operands, k_out
+
+    # ---- the worst case: a stream of the same length with no reset ---------
+    gen = torch.Generator(device="cuda").manual_seed(STREAM_SEED)
+    ops_nr = torch.full((t,), OP_EUCLIDEAN, dtype=torch.int32, device="cuda")
+    opnd_nr = torch.zeros((N_OPERAND_ROWS, n_jobs), device="cuda")
+    opnd_nr[9:41] = torch.randn((32, n_jobs), generator=gen, device="cuda")
+    opnd_nr[41] = 16.0
+    nr_ms, nr_k = event_ms(lambda: unified(ops_nr, opnd_nr), reps=3)
+    nr_p = unified_plain(ops_nr, opnd_nr)
+    same_bits("no-reset stream: unified kernel vs unified_plain", (nr_k,), (nr_p,))
+    say(f"phase 9 no-reset stream: {t} OpEuclidean beats, no reset (128 chains of "
+        f"{t} beats, the kernel's worst case): kernel {nr_ms:.3f} ms (median of 3), "
+        f"bit-equal to unified_plain")
+    del opnd_nr, nr_k, nr_p
+    return [kernel_row("unified", "unified.cu", "src/repro/kernels/unified.py:206",
+                       launches, ms, plain_ms, err, bound)]
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_dir():
         fail(f"{SRC / 'repro_torch'} or {GOLDEN} missing: run from a "
@@ -904,9 +1128,11 @@ def main() -> None:
     rng = np.random.default_rng(SEED)
     phase_stage_kernels(torch, rng)
     phase_goldens(torch)
-    kernels = phase_main_path(torch)
-    kernels += phase_brute(torch)
+    kernels, stage_jobs = phase_main_path(torch)
+    rows, vectors = phase_brute(torch)
+    kernels += rows
     kernels += phase_tree(torch)
+    kernels += phase_stream(torch, stage_jobs, vectors)
 
     say(card)
     say(json.dumps({"kernels": kernels}))

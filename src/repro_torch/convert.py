@@ -1,10 +1,10 @@
 """Carry state across from the reference package, through numpy.
 
 The port imports nothing of ``repro``; a caller who holds a ``repro``
-BVH, ray batch, vector index or point cloud passes its arrays as numpy
-and gets the port's objects back.  With these, traversal parity can be
-tested apart from builder parity: both packages traverse the very same
-tree.
+BVH, ray batch, vector index, point cloud or datapath job stream passes
+its arrays as numpy and gets the port's objects back.  With these,
+traversal parity can be tested apart from builder parity: both packages
+traverse the very same tree.
 """
 from __future__ import annotations
 
@@ -14,7 +14,8 @@ import torch
 from .core.bvh import BVH4, DEFAULT_CONFIG
 from .core.device import resolve_device
 from .core.session import PointCloudScene, VectorIndex
-from .core.types import Ray, Triangle
+from .core.stream import DatapathJob
+from .core.types import Box, DatapathState, Ray, Triangle
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -65,3 +66,27 @@ def point_cloud_from_numpy(node_lo, node_hi, leaf_tri, points, leaf_perm, depth,
                leaf_tri=_i32(leaf_tri, device), triangles=Triangle(pts, pts, pts),
                leaf_perm=_i32(leaf_perm, device))
     return PointCloudScene(bvh, int(depth), config=DEFAULT_CONFIG)
+
+
+def jobs_from_numpy(jobs, *, device=None) -> DatapathJob:
+    """A ``repro`` ``DatapathJob`` whose leaves are numpy arrays (for
+    example ``jax.tree.map(np.asarray, jobs)``) -> the port's
+    ``DatapathJob``, field by field."""
+    device = resolve_device(device)
+    r = jobs.ray
+    return DatapathJob(
+        opcode=_i32(jobs.opcode, device),
+        ray=rays_from_numpy(r.origin, r.direction, r.inv, r.extent, r.kx, r.ky,
+                            r.kz, r.shear, device=device),
+        boxes=Box(_f32(jobs.boxes.lo, device), _f32(jobs.boxes.hi, device)),
+        triangle=Triangle(*(_f32(v, device) for v in jobs.triangle)),
+        vec_a=_f32(jobs.vec_a, device), vec_b=_f32(jobs.vec_b, device),
+        mask=torch.as_tensor(np.array(jobs.mask, dtype=bool), device=device),
+        reset_accum=torch.as_tensor(np.array(jobs.reset_accum, dtype=bool),
+                                    device=device))
+
+
+def datapath_state_from_numpy(state, *, device=None) -> DatapathState:
+    """A ``repro`` ``DatapathState`` with numpy leaves -> the port's."""
+    device = resolve_device(device)
+    return DatapathState(*(_f32(x, device) for x in state))

@@ -1,7 +1,8 @@
 """The Ray Tracer Datapath's traversal stage units, in plain PyTorch.
 
 The port's counterpart of ``repro/core/datapath.py`` (OpQuadbox,
-OpTriangle and the point-box test of neighbour search).  Each stage is one eager elementwise op, and PyTorch rounds
+OpTriangle, the point-box test of neighbour search, and the OpEuclidean /
+OpAngular beats with their accumulators).  Each stage is one eager elementwise op, and PyTorch rounds
 every such op to f32, which is the paper's round-after-every-functional-
 unit choice (§III-D).  These are the plain versions of the stage units of
 the CUDA kernels (``csrc/datapath.cuh``): the CPU path runs them,
@@ -16,7 +17,19 @@ from __future__ import annotations
 
 import torch
 
-from .types import Box, PointBoxResult, QuadBoxResult, Ray, Triangle, TriangleResult
+from .types import (
+    ANGULAR_LANES,
+    VECTOR_LANES,
+    AngularResult,
+    Box,
+    DatapathState,
+    EuclideanResult,
+    PointBoxResult,
+    QuadBoxResult,
+    Ray,
+    Triangle,
+    TriangleResult,
+)
 
 
 def cmp_select(a: torch.Tensor, b: torch.Tensor, lt: torch.Tensor | None = None):
@@ -160,3 +173,103 @@ def ray_triangle_test(ray: Ray, tri: Triangle) -> TriangleResult:
     # stage 10: hit decision (5 comparators)
     hit = (t_num > 0.0) & (t_denom != 0.0) & (u >= 0.0) & (v >= 0.0) & (w >= 0.0)
     return TriangleResult(t_num=t_num, t_denom=t_denom, hit=hit)
+
+
+# ---------------------------------------------------------------------------
+# OpEuclidean / OpAngular (Table VII columns 3-4): masked lanes + adder tree
+# ---------------------------------------------------------------------------
+
+
+def _mask_lanes(x: torch.Tensor, mask: torch.Tensor | None, lanes: int) -> torch.Tensor:
+    x = x[..., :lanes]
+    if mask is not None:
+        x = torch.where(mask[..., :lanes], x, 0.0)
+    return x
+
+
+def euclidean_partial(a: torch.Tensor, b: torch.Tensor,
+                      mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One beat of OpEuclidean: sum over <=16 lanes of (a-b)^2, through the
+    hardware's pairwise adder tree 16->8->4->2->1 in that order."""
+    d = _mask_lanes(a, mask, VECTOR_LANES) - _mask_lanes(b, mask, VECTOR_LANES)  # stage 2
+    d = d * d  # stage 3 (16 muls)
+    d = d[..., :8] + d[..., 8:16]  # stage 4 (8 adds)
+    d = d[..., :4] + d[..., 4:8]  # stage 6 (4 adds)
+    d = d[..., :2] + d[..., 2:4]  # stage 8 (2 adds)
+    return d[..., 0] + d[..., 1]  # stage 9 (1 add)
+
+
+def angular_partial(q: torch.Tensor, c: torch.Tensor, mask: torch.Tensor | None = None):
+    """One beat of OpAngular: (sum q*c, sum c*c) over <=8 lanes, two
+    8->4->2->1 trees."""
+    qm = _mask_lanes(q, mask, ANGULAR_LANES)
+    cm = _mask_lanes(c, mask, ANGULAR_LANES)
+    dot = qm * cm  # stage 3 (8 muls)
+    nrm = cm * cm  # stage 3 (8 muls)
+    dot = dot[..., :4] + dot[..., 4:8]  # stage 4
+    nrm = nrm[..., :4] + nrm[..., 4:8]
+    dot = dot[..., :2] + dot[..., 2:4]  # stage 6
+    nrm = nrm[..., :2] + nrm[..., 2:4]
+    return dot[..., 0] + dot[..., 1], nrm[..., 0] + nrm[..., 1]  # stage 8
+
+
+def euclidean_beat(state: DatapathState, a, b, mask=None, reset=False):
+    """Full OpEuclidean job incl. accumulator semantics (Table V):
+    ``reset`` clears the Euclidean accumulator for this job; the angular
+    accumulators are untouched (per-mode isolation).  On a reset the add
+    still runs, with +0.0, so a -0.0 partial comes out +0.0."""
+    partial = euclidean_partial(a, b, mask)
+    reset = torch.as_tensor(reset, device=partial.device)
+    out = partial + torch.where(reset, 0.0, state.euclid_accum)  # stage 10
+    return state._replace(euclid_accum=out), EuclideanResult(out, reset)
+
+
+def angular_beat(state: DatapathState, q, c, mask=None, reset=False):
+    """Full OpAngular job incl. dual accumulators (dot product and norm)."""
+    dot_p, nrm_p = angular_partial(q, c, mask)
+    reset = torch.as_tensor(reset, device=dot_p.device)
+    dot = dot_p + torch.where(reset, 0.0, state.dot_accum)  # stage 9 (2 adds)
+    nrm = nrm_p + torch.where(reset, 0.0, state.norm_accum)
+    return (state._replace(dot_accum=dot, norm_accum=nrm),
+            AngularResult(dot, nrm, reset))
+
+
+def euclidean_distance_sq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Any-dimension Euclidean distance**2 by multi-beat accumulation.
+
+    a, b: (..., D).  D is padded to whole 16-lane beats with masked lanes
+    and fed one beat at a time, as the hardware is fed; the first beat adds
+    +0.0, each later one the running sum.
+    """
+    a, b, mask, beats = _beats(a, b, VECTOR_LANES)
+    acc = torch.zeros(a.shape[1:-1], dtype=torch.float32, device=a.device)
+    for j in range(beats):
+        acc = euclidean_partial(a[j], b[j], mask[j]) + acc
+    return acc
+
+
+def angular_distance_parts(q: torch.Tensor, c: torch.Tensor):
+    """Any-dimension (q . c, ||c||^2) by 8-lane beats."""
+    q, c, mask, beats = _beats(q, c, ANGULAR_LANES)
+    dot = torch.zeros(q.shape[1:-1], dtype=torch.float32, device=q.device)
+    nrm = dot.clone()
+    for j in range(beats):
+        d, n = angular_partial(q[j], c[j], mask[j])
+        dot, nrm = d + dot, n + nrm
+    return dot, nrm
+
+
+def _beats(a: torch.Tensor, b: torch.Tensor, lanes: int):
+    """(..., D) pair -> (beats, ..., lanes) zero-padded beats and their
+    lane masks (lanes past D are dead)."""
+    d = a.shape[-1]
+    beats = max(1, -(-d // lanes))
+    pad = beats * lanes - d
+
+    def to_beats(x):
+        x = torch.nn.functional.pad(x.to(torch.float32), (0, pad))
+        return x.reshape(x.shape[:-1] + (beats, lanes)).movedim(-2, 0)
+
+    mask = torch.arange(beats * lanes, device=a.device) < d
+    mask = mask.reshape(beats, *(1,) * (a.dim() - 1), lanes)
+    return to_beats(a), to_beats(b), mask, beats

@@ -21,6 +21,18 @@ OP_QUADBOX = 1
 OP_EUCLIDEAN = 2
 OP_ANGULAR = 3
 
+OPCODE_NAMES = {
+    OP_TRIANGLE: "OpTriangle",
+    OP_QUADBOX: "OpQuadbox",
+    OP_EUCLIDEAN: "OpEuclidean",
+    OP_ANGULAR: "OpAngular",
+}
+
+# Table IV: vector dimension is capped at 16 per beat; the angular mode
+# processes half that many lanes per beat (each lane needs two multipliers).
+VECTOR_LANES = 16
+ANGULAR_LANES = VECTOR_LANES // 2
+
 # Number of boxes per quad-box job (Table V: aabb_0..aabb_3).
 QUAD = 4
 
@@ -78,6 +90,36 @@ class TriangleResult(NamedTuple):
     t_num: torch.Tensor  # (...,) f32
     t_denom: torch.Tensor  # (...,) f32
     hit: torch.Tensor  # (...,) bool
+
+
+class EuclideanResult(NamedTuple):
+    accumulator: torch.Tensor  # (...,) f32  running sum of squares
+    reset_accum: torch.Tensor  # (...,) bool (propagated from input)
+
+
+class AngularResult(NamedTuple):
+    dot_product: torch.Tensor  # (...,) f32  running sum of products
+    norm: torch.Tensor  # (...,) f32  running sum of candidate squares
+    reset_accum: torch.Tensor  # (...,) bool (propagated from input)
+
+
+class DatapathState(NamedTuple):
+    """Internal accumulators (Table V: per-mode, isolated from each other),
+    one per lane-stream of the batch shape."""
+
+    euclid_accum: torch.Tensor  # batch shape, f32
+    dot_accum: torch.Tensor
+    norm_accum: torch.Tensor
+
+
+def init_datapath_state(shape=(), *, device=None) -> DatapathState:
+    """Accumulators at power-up (+0.0), of batch shape ``shape``.
+
+    ``device=None`` puts them on CUDA (raising without a GPU); pass
+    ``device="cpu"`` for the plain path.
+    """
+    z = torch.zeros(shape, dtype=torch.float32, device=resolve_device(device))
+    return DatapathState(z, z.clone(), z.clone())
 
 
 def as_f32(x, device: torch.device) -> torch.Tensor:

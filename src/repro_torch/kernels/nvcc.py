@@ -46,6 +46,7 @@ SIGNATURES = {
     "rayflex_norm": [_P, _P, _I, _I, _P],
     "rayflex_neighbor": [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I,
                          _I, _I, _F, _F, _P, _P, _P, _P, _P, _P],
+    "rayflex_unified": [_P] * 4 + [_I, _P],
 }
 
 _launches: Counter = Counter()

@@ -1,8 +1,9 @@
-"""Plain oracles for the stage and distance kernels (the ``ref.py``
-contract).
+"""Plain oracles for the stage, distance and unified-stream kernels (the
+``ref.py`` contract).
 
 Each has the same signature as its wrapper in :mod:`.ops` and routes
-through ``repro_torch.core.datapath`` or ``repro_torch.core.knn``.
+through ``repro_torch.core.datapath``, ``repro_torch.core.knn`` or
+``repro_torch.core.stream``.
 """
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import torch
 
 from ..core.datapath import ray_box_test, ray_triangle_test
 from ..core.knn import angular_scores, euclidean_scores
+from ..core.stream import DatapathJob, DatapathOutput, unified_stream
 from ..core.types import Box, QuadBoxResult, Ray, Triangle, TriangleResult
 
 
@@ -34,3 +36,10 @@ def euclidean_direct_ref(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 
 def angular_ref(q: torch.Tensor, c: torch.Tensor):
     return angular_scores(q, c)
+
+
+def unified_ref(jobs: DatapathJob) -> DatapathOutput:
+    """Per-lane-stream oracle of :func:`.ops.unified_datapath`: jobs leaves
+    (T, 128, ...), each lane an independent in-order stream of T jobs, run
+    side by side by ``unified_stream`` with a (128,) state."""
+    return unified_stream(jobs)[1]

@@ -6,8 +6,8 @@ machine:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-The traversal and neighbour kernels round every op as their plain
-versions do (``-fmad=false`` and explicit round-to-nearest intrinsics),
+The traversal, neighbour and unified-stream kernels round every op as
+their plain versions do (``-fmad=false`` and explicit round-to-nearest intrinsics),
 so every field is bit-equal.  The distance and norm kernels sum in
 another order than their plain versions (one matmul per 128-wide K
 block), so their scores are held to ``1e-5 * (|q|^2 + |c|^2)`` for
@@ -28,8 +28,10 @@ from repro_torch.kernels.distance import (MODES, distance_cuda, distance_plain,
                                           norms_cuda, norms_plain)
 from repro_torch.kernels.raybox import raybox, raybox_plain
 from repro_torch.kernels.raytri import raytri, raytri_plain
+from repro_torch.kernels.common import LANES, ROW_K, ROW_MASK, ROW_RESET, ROW_VEC_A
 from repro_torch.kernels.traverse import (neighbor_packed, pack_bvh, pack_point_bvh,
                                           traverse_packed)
+from repro_torch.kernels.unified import unified, unified_plain
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 pytestmark = pytest.mark.cuda
@@ -190,3 +192,71 @@ def test_engine_kernel_backends_match_plain_backends(cuda):
     assert nvcc.launch_counts()["neighbor"] == 2 * 1  # 2000 queries: one chunk
     counts = ceng.count_within(qp, 0.05)
     assert torch.equal(counts, ceng.count_within(qp, 0.05, backend="tree_wavefront"))
+
+
+def _stream_operands(rng, ops, reset_p=0.3):
+    """Packed (48, T*128) operands for per-beat opcodes ``ops``: normal
+    values; k rows of {0, 1, 2, 0.5} and sign rows of {0, 1}; live-lane
+    counts 0..16; per-lane resets that differ within a beat; NaN, +-inf
+    and -0.0 in the dead lanes of vector beats."""
+    t = len(ops)
+    n = t * LANES
+    x = rng.normal(size=(48, n)).astype(np.float32)
+    op = np.repeat(np.asarray(ops), LANES)
+    x[ROW_K:ROW_K + 3] = rng.choice(np.float32([0, 1, 2, 0.5]), size=(3, n))
+    x[ROW_K:ROW_K + 3, op == 1] = rng.integers(0, 2, (3, int((op == 1).sum())))
+    count = rng.integers(0, 17, n)
+    x[ROW_MASK] = count
+    x[ROW_RESET] = rng.random(n) < reset_p
+    dead = (np.arange(32)[:, None] % 16 >= count[None]) & (op >= 2)
+    junk = rng.choice(np.float32([np.nan, np.inf, -np.inf, -0.0]), size=(32, n))
+    rows = x[ROW_VEC_A:ROW_VEC_A + 32]
+    rows[dead] = junk[dead]
+    return (torch.as_tensor(np.asarray(ops, np.int32), device="cuda"),
+            torch.as_tensor(x, device="cuda"))
+
+
+def _unified_bit_equal(opcodes, operands):
+    before = nvcc.launch_counts().get("unified", 0)
+    got = unified(opcodes, operands)
+    assert nvcc.launch_counts()["unified"] == before + 1
+    want = unified_plain(opcodes, operands)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (16, operands.shape[1])
+    bad = (got.view(torch.int32) != want.view(torch.int32)).any(1)
+    assert not bool(bad.any()), f"rows {torch.nonzero(bad).flatten().tolist()} differ"
+    return got
+
+
+@pytest.mark.parametrize("t", [1, 3, 37])
+def test_unified_kernel_bit_equal_to_plain(cuda, t):
+    rng = np.random.default_rng(t)
+    ops = rng.integers(0, 4, size=t)
+    if t >= 4:
+        ops[:4] = rng.permutation(4)
+    _unified_bit_equal(*_stream_operands(rng, ops))
+
+
+def test_unified_kernel_no_reset_stream(cuda):
+    """All-euclidean beats and no reset: 128 chains as long as the stream,
+    longer than a walk's look-ahead many times over."""
+    rng = np.random.default_rng(11)
+    opcodes, operands = _stream_operands(rng, np.full(300, 2), reset_p=0.0)
+    got = _unified_bit_equal(opcodes, operands)
+    assert bool((got[0].view(300, LANES).diff(dim=0) >= 0).all())  # sums of squares
+
+
+def test_unified_kernel_signed_zero(cuda):
+    """q = -1, c = +0 on 8 live lanes gives a -0.0 dot partial; the first
+    angular beat and a reset beat both add +0.0 and give +0.0."""
+    ops = np.asarray([3, 1, 3, 3], np.int32)
+    opcodes, operands = _stream_operands(np.random.default_rng(2), ops)
+    cols = torch.cat([torch.arange(LANES) + b * LANES for b in (0, 2, 3)]).cuda()
+    operands[ROW_VEC_A:ROW_VEC_A + 8, cols] = -1.0
+    operands[ROW_VEC_A + 16:ROW_VEC_A + 24, cols] = 0.0
+    operands[ROW_MASK, cols] = 8.0
+    operands[ROW_RESET, cols] = 0.0
+    operands[ROW_RESET, 3 * LANES:] = 1.0
+    got = _unified_bit_equal(opcodes, operands)
+    dots = got[0, cols].view(3, LANES)
+    assert bool((dots.view(torch.int32) == 0).all())  # +0.0, not -0.0
