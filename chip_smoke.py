@@ -30,8 +30,10 @@ Phases (any failure exits non-zero and prints no result line):
    k=10, ``within`` and ``count_within`` at a radius fixed from the data)
    and ``glove-100-angular`` (1,183,514 x 100, 10,000 queries; cosine
    ``nearest`` k=10), through ``VectorIndex.from_database(...).engine(
-   chunk_size=1024)``.  The distance and norm kernels are held to their
-   plain versions on the path's own full-size inputs within
+   chunk_size=1024)``.  The distance kernel (3xTF32 on the tensor cores;
+   one ``kernels`` row per mode, its bound set by the TF32 rate or the
+   bytes, the old f32 bound beside it) and the norm kernel are held to
+   their plain versions on the path's own full-size inputs within
    ``1e-5 (|q|^2 + |c|^2)`` (distances), ``1e-5 |q| |c|`` (dots) and
    ``1e-5 |c|^2`` (norms); ``nearest`` equals the ``mxu`` backend's
    indices on every query whose top-11 scores are further apart than that;
@@ -90,9 +92,11 @@ TIMED_REPS = 5
 #: sheet, 0 on cluster).  Every other field is exact.
 GOLDEN_T_ULPS = 2
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth and f32 (non-tensor) rate
+# H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 (non-tensor) rate
+# and the dense TF32 tensor-core rate (the distance kernel's 3xTF32)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 # bytes each kernel must move per job, and f32 operations per job
 RAYBOX_BYTES, RAYBOX_OPS = (9 + 24 + 12) * 4, 4 * (6 + 6 + 6 + 1) + 5
 #: OpTriangle reads org, shear, k (i32) and three vertices, 6 rows of 3
@@ -166,6 +170,46 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def distance_bounds(m: int, n: int, d: int, euclidean: bool):
+    """The distance kernel's bound, and the old f32 bound beside it.  The
+    kernel's f32-accurate product is 3xTF32, three TF32 products a term on
+    the tensor cores (2 M N D operations each), plus the euclidean close
+    (3 M N f32 operations); the bytes are q, c read once and the M N
+    scores written once.  The old bound counts the product at the f32
+    rate."""
+    n_bytes = 4.0 * (m * d + n * d + m * n)
+    close = 3.0 * m * n if euclidean else 0.0
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 * 2.0 * m * n * d / TF32_OPS_PER_S + close / F32_OPS_PER_S) * 1e3
+    new = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    return new, bound_ms(n_bytes, 2.0 * m * n * d + close)
+
+
+def hgmma_counts(lib_path) -> dict | None:
+    """TF32 wgmma instructions (SASS ``HGMMA.*.TF32``) in each distance
+    kernel of the built library, or None where the toolkit has no
+    cuobjdump."""
+    from repro_torch.kernels import nvcc
+    tool = Path(nvcc.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        return None
+    proc = subprocess.run([str(tool), "--dump-sass", str(lib_path)],
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fail(f"cuobjdump --dump-sass exited {proc.returncode}: {proc.stderr.strip()}")
+    counts, fn = {}, None
+    for line in proc.stdout.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            fn = None
+            if "distance_kernel" in name:
+                fn = "euclidean" if "distance_kernelILb1E" in name else "angular"
+                counts[fn] = 0
+        elif fn and "HGMMA" in line and "TF32" in line:
+            counts[fn] += 1
+    return counts
 
 
 def event_ms(fn, reps: int = TIMED_REPS):
@@ -586,6 +630,15 @@ def score_error(got, want, scale) -> float:
     return float(diff[torch.isfinite(diff)].max()) if diff.numel() else 0.0
 
 
+def scaled_error(got, want, scale) -> float:
+    """The largest |got - want| / scale over finite scores: how much of
+    the tolerance's scale an error uses (printed beside the gate)."""
+    import torch
+    ratio = (got - want).abs().div_(scale)
+    ratio = ratio[torch.isfinite(ratio)]
+    return float(ratio.max()) if ratio.numel() else 0.0
+
+
 def check_nearest_vs_mxu(torch, label, engine, q, got, metric, tol_scale):
     """``got`` (the path's ``nearest``) against the mxu backend: indices
     equal on every query whose top-11 mxu scores are further apart than
@@ -630,6 +683,8 @@ def phase_brute(torch):
     near = s_eng.nearest(q_s, K_ANN)
     ball = s_eng.within(q_s, radius, K_ANN)
     counts = s_eng.count_within(q_s, radius)
+    torch.cuda.synchronize()
+    sift_launches = nvcc.launch_counts().get("distance", 0)  # euclidean mode
     glove = VectorIndex.from_database(glove_db, device="cuda")
     g_eng = glove.engine(chunk_size=CHUNK)
     g_near = g_eng.nearest(q_g, K_ANN, "cosine")
@@ -638,6 +693,10 @@ def phase_brute(torch):
     for name in ("distance", "norm"):
         if launches.get(name, 0) < 1:
             fail(f"the brute-force path launched no {name} kernel ({launches})")
+    launches["distance (euclidean)"] = sift_launches
+    launches["distance (angular)"] = launches["distance"] - sift_launches
+    if min(sift_launches, launches["distance (angular)"]) < 1:
+        fail(f"the brute-force path missed a distance mode ({launches})")
 
     # ---- results: shapes, finiteness, agreement with mxu -------------------
     for label, res in (("sift nearest", near), ("sift within", ball),
@@ -681,6 +740,7 @@ def phase_brute(torch):
     dist_ms, d_k = event_ms(lambda: distance_cuda(qp, cp))
     dist_plain_ms, d_p = event_ms(lambda: distance_plain(qp, cp))
     dist_err = score_error(d_k, d_p, scale)
+    dist_rel = scaled_error(d_k, d_p, scale)
     del d_k, d_p, scale
     dist_lib_ms, _ = event_ms(lambda: torch.cdist(
         qp, cp, compute_mode="use_mm_for_euclid_dist"))
@@ -689,6 +749,7 @@ def phase_brute(torch):
     dot_plain_ms, a_p = event_ms(lambda: distance_plain(gp, gcp, "angular"))
     dot_scale = (gp * gp).sum(1).sqrt()[:, None] * (gcp * gcp).sum(1).sqrt()[None, :]
     dot_err = score_error(a_k, a_p, dot_scale)
+    dot_rel = scaled_error(a_k, a_p, dot_scale)
     del a_k, a_p, dot_scale
     dot_lib_ms, _ = event_ms(lambda: torch.matmul(gp, gcp.T))  # TF32 is off
     norm_ms, n_k = event_ms(lambda: norms_cuda(glove.database))
@@ -696,17 +757,22 @@ def phase_brute(torch):
     norm_err = score_error(n_k, n_p, n_p)
     norm_lib_ms, _ = event_ms(lambda: torch.linalg.vector_norm(glove.database, dim=1))
     m, n, d = qp.shape[0], cp.shape[0], qp.shape[1]
-    dist_bound = bound_ms(4.0 * (m * d + n * d + m * n), 2.0 * m * n * d + 3.0 * m * n)
+    dist_bound, dist_f32 = distance_bounds(m, n, d, euclidean=True)
     gm, gn, gd = gp.shape[0], gcp.shape[0], gp.shape[1]
-    dot_bound = bound_ms(4.0 * (gm * gd + gn * gd + gm * gn), 2.0 * gm * gn * gd)
+    dot_bound, dot_f32 = distance_bounds(gm, gn, gd, euclidean=False)
     gn_raw = glove.database.shape[0]
     norm_bound = bound_ms(4.0 * (gn_raw * GLOVE_D + gn_raw), 2.0 * gn_raw * GLOVE_D)
-    say(f"phase 7 distance kernel, euclidean {m} x {n} x {d}: {dist_ms:.3f} ms "
-        f"(plain {dist_plain_ms:.3f}, torch.cdist {dist_lib_ms:.3f} [returns the "
-        f"root], bound {dist_bound[0]:.3f} {dist_bound[1]}), max |err| {dist_err:.3g}")
-    say(f"phase 7 distance kernel, angular {gm} x {gn} x {gd}: {dot_ms:.3f} ms "
-        f"(plain {dot_plain_ms:.3f}, torch.matmul {dot_lib_ms:.3f}, bound "
-        f"{dot_bound[0]:.3f} {dot_bound[1]}), max |err| {dot_err:.3g}")
+    say(f"phase 7 distance kernel, euclidean {m} x {n} x {d}: {dist_ms:.3f} ms, "
+        f"{2.0 * m * n * d / dist_ms / 1e9:.1f} TFLOP/s (2 M N D / time; plain "
+        f"{dist_plain_ms:.3f}, torch.cdist {dist_lib_ms:.3f} [returns the root], "
+        f"bound {dist_bound[0]:.3f} {dist_bound[1]} [3xTF32], old f32 bound "
+        f"{dist_f32[0]:.3f} {dist_f32[1]}), max |err| {dist_err:.3g} "
+        f"({dist_rel:.3g} of |q|^2 + |c|^2; gate {SCORE_RTOL:g})")
+    say(f"phase 7 distance kernel, angular {gm} x {gn} x {gd}: {dot_ms:.3f} ms, "
+        f"{2.0 * gm * gn * gd / dot_ms / 1e9:.1f} TFLOP/s (plain {dot_plain_ms:.3f}, "
+        f"torch.matmul {dot_lib_ms:.3f}, bound {dot_bound[0]:.3f} {dot_bound[1]} "
+        f"[3xTF32], old f32 bound {dot_f32[0]:.3f} {dot_f32[1]}), max |err| "
+        f"{dot_err:.3g} ({dot_rel:.3g} of |q||c|; gate {SCORE_RTOL:g})")
     say(f"phase 7 norm kernel {gn_raw} x {GLOVE_D}: {norm_ms:.4f} ms (plain "
         f"{norm_plain_ms:.4f}, torch.linalg.vector_norm {norm_lib_ms:.4f} [returns "
         f"the root], bound {norm_bound[0]:.4f} {norm_bound[1]}), max |err| "
@@ -726,10 +792,16 @@ def phase_brute(torch):
     say(f"phase 7 VectorIndex.from_database (sift, copy in + norms): "
         f"{build_ms:.3f} ms")
     vectors = (sift_db, sift_q, glove_db, glove_q)  # on the host: phase 8 runs first
-    return [
-        kernel_row("distance", "distance.cu", "src/repro/kernels/distance.py:33",
-                   launches, dist_ms, dist_plain_ms, dist_err, dist_bound,
-                   dist_lib_ms),
+    rows = [
+        kernel_row("distance (euclidean)", "distance.cu",
+                   "src/repro/kernels/distance.py:33", launches, dist_ms,
+                   dist_plain_ms, dist_err, dist_bound, dist_lib_ms),
+        kernel_row("distance (angular)", "distance.cu",
+                   "src/repro/kernels/distance.py:33", launches, dot_ms,
+                   dot_plain_ms, dot_err, dot_bound, dot_lib_ms),
+    ]
+    rows[0]["f32_bound_ms"], rows[1]["f32_bound_ms"] = dist_f32[0], dot_f32[0]
+    return rows + [
         kernel_row("norm", "distance.cu", "src/repro/kernels/distance.py:65",
                    launches, norm_ms, norm_plain_ms, norm_err, norm_bound,
                    norm_lib_ms),
@@ -1113,6 +1185,15 @@ def main() -> None:
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {src}: {line.strip()}")
+    hgmma = hgmma_counts(lib_path)
+    if hgmma is None:
+        say("phase 1 SASS: the toolkit has no cuobjdump; ptxas's lines above "
+            "stand for the distance kernel")
+    elif sorted(hgmma) != ["angular", "euclidean"] or min(hgmma.values()) < 1:
+        fail(f"the distance kernels hold no TF32 wgmma in their SASS ({hgmma})")
+    else:
+        say("phase 1 SASS: TF32 wgmma (HGMMA) instructions in the distance "
+            f"kernel: {hgmma['euclidean']} euclidean, {hgmma['angular']} angular")
     try:
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                               "--format=csv,noheader"], capture_output=True,

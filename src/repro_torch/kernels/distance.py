@@ -13,9 +13,15 @@ On CUDA tensors :func:`distance_cuda` / :func:`norms_cuda` launch the
 hand-written kernels; on CPU tensors they run :func:`distance_plain` /
 :func:`norms_plain`, which compute the same blocked form with one
 ``torch.matmul`` per block (TF32 off).  Unlike ``distance_pallas``, the
-wrappers take any M, N and D: the kernels mask the ragged edges.  The
-kernel is held to the plain version within a tolerance, not to its bits
-(the sums run in another order).
+wrappers take any M, N and D: the kernels mask the ragged edges.
+
+The distance kernel computes q.c as 3xTF32 on the tensor cores, as the
+reference's ``Precision.HIGHEST`` emulates f32 on the MXU: each operand is
+split once as ``x = hi + lo`` (:func:`split_tf32`) and q.c is
+``hi.hi + (hi.lo + lo.hi)``, with ``lo`` truncated to TF32 by the tensor
+cores.  It is held to the plain version within a tolerance, not to its
+bits.  :func:`distance_3xtf32` models that arithmetic in plain PyTorch for
+the tests; the main path calls neither of the two.
 """
 from __future__ import annotations
 
@@ -49,6 +55,90 @@ def distance_plain(q: torch.Tensor, c: torch.Tensor,
             qc = qc.mul_(-2.0).add_(q2).add_(c2)  # (q2 - 2 qc) + c2
         acc.add_(qc)
     return acc.clamp_min_(0.0) if mode == "euclidean" else acc
+
+
+#: f32 mantissa bits that TF32 drops
+_TF32_DROP = 0x1FFF
+#: rows with a value beyond this (or non-finite) are recomputed in plain
+#: f32 by the kernel: hi may overflow there, and inf - inf or inf * 0 in
+#: the split products give NaN where the plain sum gives +-inf
+SPLIT_LIMIT = 2.0 ** 126
+
+
+def split_tf32(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The distance kernel's operand split (``cvt.rna.tf32.f32``), as plain
+    PyTorch: ``hi`` is f32 ``x`` rounded to TF32 (10 mantissa bits) to
+    nearest, ties away from zero, and ``lo = x - hi``, exact for finite
+    ``x`` below :data:`SPLIT_LIMIT`.  The main path never calls it."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    hi = ((bits + 0x1000) & ~_TF32_DROP).view(torch.float32)
+    return hi, x - hi
+
+
+def _truncate_tf32(x: torch.Tensor) -> torch.Tensor:
+    """What the tensor cores read of an f32 operand: its TF32 truncation."""
+    return (x.contiguous().view(torch.int32) & ~_TF32_DROP).view(torch.float32)
+
+
+def split_flags(x: torch.Tensor) -> torch.Tensor:
+    """Rows the kernel recomputes in plain f32: any value non-finite or
+    beyond :data:`SPLIT_LIMIT` in magnitude."""
+    return ~(x.abs() <= SPLIT_LIMIT).all(1)
+
+
+def _sequential_pairs(q: torch.Tensor, c: torch.Tensor, mode: str) -> torch.Tensor:
+    """Scores of row pairs (q[i], c[i]) in the kernel's plain f32 order:
+    one fused multiply-add per feature, each 128-wide block closed and
+    added to a total.  A product of two f32 values is exact in f64, so
+    each step is ``fma`` up to a rare double rounding."""
+    total = torch.zeros(q.shape[0], dtype=torch.float32)
+
+    def fma(a, b, acc):
+        return (a.double() * b.double() + acc.double()).float()
+
+    for k0 in range(0, q.shape[1], K_BLOCK):
+        part = torch.zeros_like(total)
+        q2, c2 = torch.zeros_like(total), torch.zeros_like(total)
+        for k in range(k0, min(k0 + K_BLOCK, q.shape[1])):
+            a, b = q[:, k], c[:, k]
+            part = fma(a, b, part)
+            if mode == "euclidean":
+                q2, c2 = fma(a, a, q2), fma(b, b, c2)
+        total = total + ((q2 - 2.0 * part) + c2 if mode == "euclidean" else part)
+    if mode == "euclidean":
+        total = torch.where(total > 0, total, torch.where(torch.isnan(total), total, 0.0))
+    return total
+
+
+def distance_3xtf32(q: torch.Tensor, c: torch.Tensor,
+                    mode: str = "euclidean") -> torch.Tensor:
+    """The distance kernel's arithmetic as plain PyTorch, for the tests:
+    per K block ``hi.hi + (hi.lo + lo.hi)`` from :func:`split_tf32` with
+    ``lo`` truncated to TF32 (three f32 matmuls), the euclidean close of
+    :func:`distance_plain`, and the pairs of flagged rows
+    (:func:`split_flags`) recomputed in the kernel's plain f32 order."""
+    _check_mode(mode)
+    m, d = q.shape
+    qh, ql = split_tf32(q)
+    ch, cl = split_tf32(c)
+    ql, cl = _truncate_tf32(ql), _truncate_tf32(cl)
+    acc = torch.zeros((m, c.shape[0]), dtype=torch.float32, device=q.device)
+    for k0 in range(0, d, K_BLOCK):
+        b = slice(k0, k0 + K_BLOCK)
+        with full_f32_matmul():
+            qc = qh[:, b] @ ch[:, b].T + (qh[:, b] @ cl[:, b].T + ql[:, b] @ ch[:, b].T)
+        if mode == "euclidean":
+            qb, cb = q[:, b], c[:, b]
+            qc = (qb * qb).sum(1, keepdim=True) - 2.0 * qc + (cb * cb).sum(1)[None, :]
+        acc.add_(qc)
+    if mode == "euclidean":
+        acc = acc.clamp_min_(0.0)
+    fq, fc = split_flags(q), split_flags(c)
+    pairs = fq[:, None] | fc[None, :]
+    if bool(pairs.any()):
+        i, j = torch.nonzero(pairs, as_tuple=True)
+        acc[i, j] = _sequential_pairs(q[i].cpu(), c[j].cpu(), mode).to(acc.device)
+    return acc
 
 
 def norms_plain(c: torch.Tensor) -> torch.Tensor:

@@ -8,11 +8,13 @@ machine:
 
 The traversal, neighbour and unified-stream kernels round every op as
 their plain versions do (``-fmad=false`` and explicit round-to-nearest intrinsics),
-so every field is bit-equal.  The distance and norm kernels sum in
+so every field is bit-equal.  The distance kernel computes its
+products as 3xTF32 on the tensor cores and the norm kernel sums in
 another order than their plain versions (one matmul per 128-wide K
 block), so their scores are held to ``1e-5 * (|q|^2 + |c|^2)`` for
 squared distances, ``1e-5 * |q| |c|`` for dot products and ``1e-5 |c|^2``
-for norms.
+for norms; rows holding inf or NaN give the plain version's non-finite
+scores exactly.
 """
 import os
 
@@ -24,8 +26,8 @@ from repro_torch.api import RAY_TYPES, PointCloudScene, Scene, VectorIndex, make
 from repro_torch.core.neighbor import neighbor_wavefront, point_queries, point_sq_norms
 from repro_torch.core.wavefront import trace_wavefront
 from repro_torch.kernels import nvcc
-from repro_torch.kernels.distance import (MODES, distance_cuda, distance_plain,
-                                          norms_cuda, norms_plain)
+from repro_torch.kernels.distance import (MODES, distance_3xtf32, distance_cuda,
+                                          distance_plain, norms_cuda, norms_plain)
 from repro_torch.kernels.raybox import raybox, raybox_plain
 from repro_torch.kernels.raytri import raytri, raytri_plain
 from repro_torch.kernels.common import LANES, ROW_K, ROW_MASK, ROW_RESET, ROW_VEC_A
@@ -120,20 +122,74 @@ def _score_scale(q, c, mode):
     return q2.sqrt()[:, None] * c2.sqrt()[None, :]
 
 
-@pytest.mark.parametrize("m,n,d", [(1, 1, 1), (77, 301, 37), (130, 257, 200)])
-def test_distance_and_norm_kernels_match_plain_at_ragged_shapes(cuda, m, n, d):
+def _assert_scores_close(got, want, scale, rtol=1e-5):
+    """Finite scores within ``rtol * scale``; non-finite ones equal (NaN
+    where NaN, the same infinity)."""
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    inf = torch.isinf(want)
+    assert torch.equal(got[inf], want[inf])
+    fin = torch.isfinite(want)
+    assert ((got[fin] - want[fin]).abs().double() <= rtol * scale[fin]).all()
+
+
+def _with_non_finite_rows(q, c):
+    """+-inf and NaN in a few query and candidate rows, at the first, the
+    last and a middle feature."""
+    m, d = q.shape
+    n = c.shape[0]
+    q[m // 2, d // 2] = np.inf
+    q[m - 1, 0] = np.nan
+    c[0, d - 1] = -np.inf
+    c[n // 3, d // 2] = np.inf
+    c[n - 1, 0] = np.nan
+    return q, c
+
+
+# M on both sides of the 64-row warpgroup halves and of one 128-row tile;
+# N odd and N = 2 mod 4 (output rows that start 4-byte or 8-byte aligned);
+# D unaligned (4-byte copies), padded to 8, one and two K blocks
+@pytest.mark.parametrize("m,n,d,non_finite", [
+    (1, 1, 1, False), (77, 301, 37, False), (130, 257, 200, False),
+    (63, 1023, 100, False), (65, 1026, 128, False), (1024, 515, 129, False),
+    (1, 4098, 256, False), (1024, 2050, 100, False), (64, 130, 1, False),
+    (65, 301, 37, True), (63, 1026, 128, True), (130, 515, 200, True),
+])
+def test_distance_and_norm_kernels_match_plain_at_ragged_shapes(cuda, m, n, d, non_finite):
     rng = np.random.default_rng(m + n + d)
-    q = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32), device=cuda)
-    c = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32), device=cuda)
+    q = rng.normal(size=(m, d)).astype(np.float32)
+    c = rng.normal(size=(n, d)).astype(np.float32)
+    if non_finite:
+        q, c = _with_non_finite_rows(q, c)
+    q, c = torch.as_tensor(q, device=cuda), torch.as_tensor(c, device=cuda)
     before = nvcc.launch_counts().get("distance", 0)
     for mode in MODES:
         got, want = distance_cuda(q, c, mode=mode), distance_plain(q, c, mode)
         assert got.shape == (m, n)
-        assert ((got - want).abs().double() <= 1e-5 * _score_scale(q, c, mode)).all()
+        _assert_scores_close(got, want, _score_scale(q, c, mode))
     assert nvcc.launch_counts()["distance"] == before + len(MODES)
     got, want = norms_cuda(c), norms_plain(c)
     assert got.shape == (1, n)
-    assert ((got - want).abs() <= 1e-5 * want).all()
+    _assert_scores_close(got, want, want.abs().double())
+
+
+# the kernel's arithmetic is distance_3xtf32's: both sum the same exact
+# products of the TF32 split in f32, in different orders, so they differ
+# only by f32 accumulation-order error, measured under 1e-6 of the scale
+# at these sizes and held to 2e-6 (a fifth of the 1e-5 gate; a single
+# TF32 pass misses by ~1e-4)
+@pytest.mark.parametrize("m,n,d", [(128, 1000, 128), (200, 999, 100), (65, 514, 200)])
+def test_distance_kernel_matches_3xtf32_model(cuda, m, n, d):
+    rng = np.random.default_rng(7 * d)
+    centres = rng.normal(size=(6, d))
+    q = (centres[rng.integers(0, 6, m)] + 0.35 * rng.normal(size=(m, d))).astype(np.float32)
+    c = (centres[rng.integers(0, 6, n)] + 0.35 * rng.normal(size=(n, d))).astype(np.float32)
+    q, c = torch.as_tensor(q, device=cuda), torch.as_tensor(c, device=cuda)
+    for mode in MODES:
+        before = nvcc.launch_counts().get("distance", 0)
+        got = distance_cuda(q, c, mode=mode)
+        assert nvcc.launch_counts()["distance"] == before + 1
+        model = distance_3xtf32(q, c, mode)
+        _assert_scores_close(got, model, _score_scale(q, c, mode), rtol=2e-6)
 
 
 def _cloud(cuda, n=6000, seed=3):
