@@ -5,8 +5,9 @@
 
 Phases (any failure exits non-zero and prints no result line):
 
-1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a) and
-   print the card's name and power limit;
+1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
+   print ptxas's registers, spills and stack frame (for each neighbour
+   kernel variant) and the card's name and power limit;
 2. OpQuadbox kernel vs its plain version on 1,048,576 jobs (with
    ``dir = +-0.0`` and 0 * inf slabs): every field bit-equal;
 3. OpTriangle kernel vs its plain version on 1,048,576 jobs: bit-equal;
@@ -41,12 +42,18 @@ Phases (any failure exits non-zero and prints no result line):
    every point also a query: ``nearest`` k=16, ``within`` and
    ``count_within`` through ``PointCloudScene.from_points(...).engine()``
    on ``backend="auto"``, which must resolve to ``tree_cuda``.  The
-   neighbour kernel is held bit-equal to ``neighbor_wavefront`` on all
-   2^20 queries, every field; the tree is held against exact brute force
-   (float64, direct form) on the first 65,536 queries outside a band of
-   the tree's own f32 rounding, ``16 u (|q|^2 + (|q| + rho)^2)``, which
-   must stay below r^2 on every checked query; ``nearest``
-   rank-equivalent;
+   neighbour kernel is held bit-equal to ``neighbor_wavefront``, every
+   field, on all 2^20 queries (nearest k=16 and within), on the 2^20
+   queries in a seeded random order (nearest k=16) and on the first
+   65,536 at k=65 (the general list); the tree is held against exact
+   brute force (float64, direct form) on the first 65,536 queries outside
+   a band of the tree's own f32 rounding, ``16 u (|q|^2 + (|q| + rho)^2)``,
+   which must stay below r^2 on every checked query; ``nearest``
+   rank-equivalent.  Timed: the kernel alone (min / median / max of 5),
+   the kernel in the caller's order, its Z-order prologue,
+   ``neighbor_packed`` (pack, order and launch: the span earlier versions
+   timed), ``nearest`` in caller and in random order, and a
+   SIMT-efficiency proxy per order;
 9. the unified mixed-opcode stream (Table V) through
    ``kernels.ops.unified_datapath``: 128 lane-streams, ~105k beats merged
    in a seeded random order from four sources that each keep their own
@@ -119,6 +126,9 @@ SCORE_RTOL = 1e-5
 # phase 8: 2^20 points, every point a query
 TREE_CLUSTERS, TREE_PER_CLUSTER, K_TREE, TREE_RADIUS = 1024, 1024, 16, 0.02
 BRUTE_CHECK_QUERIES, BRUTE_CHUNK = 65_536, 512
+#: the random order of phase 8's second gate, and its k beyond the
+#: kernel's register lists (on the first queries)
+TREE_PERM_SEED, K_WIDE, K_WIDE_QUERIES = SEED + 5, 65, 65_536
 U_F32 = 2.0 ** -24  # unit roundoff of f32
 #: neighbour kernel: a query reads its 4 operand floats and writes k
 #: (distance, index) pairs and 3 counters; for the per-job traffic
@@ -212,9 +222,29 @@ def hgmma_counts(lib_path) -> dict | None:
     return counts
 
 
-def event_ms(fn, reps: int = TIMED_REPS):
-    """Median device time of ``fn`` over ``reps`` runs after one warm-up,
-    and the output of the last run."""
+def neighbor_ptxas(log: str) -> list[tuple[str, str, str]]:
+    """ptxas's stack frame / spill line and register line for each variant
+    of the neighbour kernel, labelled by its list capacity."""
+    import re
+    out, label, stack = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*neighbor_kernelILi(\d+)E", line)
+        if m:
+            cap = m.group(1)
+            label = f"[{'general list' if cap == '0' else 'KCAP=' + cap}]"
+        elif label and "stack frame" in line:
+            stack = line.strip()
+        elif label and "Used" in line and "registers" in line:
+            out.append((label, stack, line.split(":", 1)[1].strip()))
+            label = None
+    if not out:
+        fail("ptxas printed no neighbour kernel variant")
+    return out
+
+
+def event_times(fn, reps: int = TIMED_REPS):
+    """Device times of ``fn`` over ``reps`` runs after one warm-up, and the
+    output of the last run."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -227,6 +257,13 @@ def event_ms(fn, reps: int = TIMED_REPS):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
+    return times, out
+
+
+def event_ms(fn, reps: int = TIMED_REPS):
+    """Median device time of ``fn`` over ``reps`` runs after one warm-up,
+    and the output of the last run."""
+    times, out = event_times(fn, reps)
     return statistics.median(times), out
 
 
@@ -820,7 +857,10 @@ def phase_tree(torch):
     from repro_torch.core.neighbor import (neighbor_wavefront, point_queries,
                                            point_sq_norms)
     from repro_torch.kernels import nvcc
-    from repro_torch.kernels.traverse import neighbor_packed, pack_point_bvh
+    from repro_torch.kernels.common import LANES, ceil_to
+    from repro_torch.kernels.traverse import (neighbor_launch, neighbor_packed,
+                                              neighbor_variant, pack_point_bvh,
+                                              pack_rays, query_order)
 
     rng = np.random.default_rng(SEED + 3)
     points = clustered_soup(rng, TREE_CLUSTERS, TREE_PER_CLUSTER, device="cuda").a
@@ -856,20 +896,41 @@ def phase_tree(torch):
     records = {}
     for mode, radius in (("nearest", None), ("within", TREE_RADIUS)):
         rays = point_queries(points, radius, device="cuda")
-        ms, got = event_ms(lambda: neighbor_packed(packed, rays, cloud.depth, K_TREE,
-                                                   mode=mode))
+        got = neighbor_packed(packed, rays, cloud.depth, K_TREE, mode=mode)
         plain_ms, want = event_ms(lambda: neighbor_wavefront(
             cloud.bvh, sq, rays, cloud.depth, K_TREE, mode), reps=1)
         err = same_bits(f"neighbor kernel vs neighbor_wavefront ({mode}) on all "
                         f"{n} queries", got, want)
-        records[mode] = (ms, plain_ms, err, got)
+        records[mode] = (rays, plain_ms, err, got)
     if not torch.equal(records["nearest"][3].index, near.indices) or \
             not torch.equal(records["within"][3].count, counts):
         fail("the engine's tree results differ from the kernel's on the same queries")
+    # the same queries in a seeded random order: each query's loop is its
+    # own in neighbor_wavefront, so its record on the permuted batch is the
+    # record above with its rows permuted (rounds, the max, unchanged)
+    perm = torch.as_tensor(np.random.default_rng(TREE_PERM_SEED).permutation(n),
+                           device="cuda")
+    want = records["nearest"][3]
+    shuffled = point_queries(points[perm], None, device="cuda")
+    got = neighbor_packed(packed, shuffled, cloud.depth, K_TREE, mode="nearest")
+    gate_err = same_bits("neighbor kernel on the queries in a random order vs "
+                         "neighbor_wavefront", got,
+                         type(want)(*(f[perm] if f.ndim else f for f in want)))
+    # k beyond the register lists: the general variant
+    sub = point_queries(points[:K_WIDE_QUERIES], None, device="cuda")
+    got = neighbor_packed(packed, sub, cloud.depth, K_WIDE, mode="nearest")
+    want = neighbor_wavefront(cloud.bvh, sq, sub, cloud.depth, K_WIDE, "nearest")
+    gate_err = max(gate_err, same_bits(
+        f"neighbor kernel vs neighbor_wavefront (nearest k={K_WIDE}, variant "
+        f"{neighbor_variant(K_WIDE)!r})", got, want))
     say(f"phase 8 cloud: {n} points (clustered_soup centres), LBVH depth "
         f"{cloud.depth}, {cloud.bvh.node_lo.shape[0]} nodes; every point is a "
-        f"query; neighbor kernel bit-equal to neighbor_wavefront on all {n} "
-        f"queries for nearest k={K_TREE} and within r={TREE_RADIUS}, every field")
+        f"query; neighbor kernel bit-equal to neighbor_wavefront, every field, on "
+        f"all {n} queries for nearest k={K_TREE} and within r={TREE_RADIUS}, on "
+        f"the {n} queries in a random order (seed {TREE_PERM_SEED}) for nearest "
+        f"k={K_TREE}, and on the first {K_WIDE_QUERIES} for nearest k={K_WIDE} "
+        f"(variant {neighbor_variant(K_WIDE)!r}; {int(want.rounds)} rounds)")
+    del got, want, sub, shuffled
 
     # ---- tree against brute force on the first queries ---------------------
     # The witness is exact: squared distances in float64 in the direct form
@@ -927,6 +988,8 @@ def phase_tree(torch):
     for label, fn, rec in (
             (f"nearest k={K_TREE}", lambda: eng.nearest(points, K_TREE),
              records["nearest"][3]),
+            (f"nearest k={K_TREE}, queries in a random order",
+             lambda: eng.nearest(points[perm], K_TREE), records["nearest"][3]),
             (f"within r={TREE_RADIUS} k={K_TREE}",
              lambda: eng.within(points, TREE_RADIUS, K_TREE), records["within"][3]),
             (f"count_within r={TREE_RADIUS}",
@@ -938,10 +1001,43 @@ def phase_tree(torch):
             f"{rec.point_jobs.double().mean().item():.3f}, rounds {int(rec.rounds)}")
     say(f"phase 8 mean in-radius count {counts.double().mean().item():.3f}")
 
+    # the kernel alone, on operands packed and ordered beforehand; the
+    # schedule's prologue (the Z-order sort) alone; and neighbor_packed,
+    # which packs, orders and launches (the span of the earlier kernel's ms)
+    rays, plain_ms, err, rec = records["nearest"]
+    prologue, order = event_times(lambda: query_order(rays.origin, packed.root[0],
+                                                      packed.root[1]))
+    kernel, caller = {}, {}
+    for mode, (rays_m, *_rest) in records.items():
+        op_m = pack_rays(rays_m, ceil_to(n, LANES))
+        kernel[mode], _ = event_times(lambda: neighbor_launch(
+            packed, op_m, order, n, cloud.depth, K_TREE, mode=mode))
+        caller[mode], _ = event_times(lambda: neighbor_launch(
+            packed, op_m, None, n, cloud.depth, K_TREE, mode=mode))
+    spans, _ = event_times(lambda: neighbor_packed(packed, rays, cloud.depth, K_TREE,
+                                                   mode="nearest"))
+    times = sorted(kernel["nearest"])
+    ms = statistics.median(times)
+    say(f"phase 8 neighbor kernel (nearest k={K_TREE}, {n} queries, variant "
+        f"{neighbor_variant(K_TREE)!r}): min {times[0]:.3f} / median {ms:.3f} / max "
+        f"{times[-1]:.3f} ms over {TIMED_REPS} runs (caller order: median "
+        f"{statistics.median(caller['nearest']):.3f}); within r={TREE_RADIUS}: median "
+        f"{statistics.median(kernel['within']):.3f} ms (caller order: "
+        f"{statistics.median(caller['within']):.3f}); order prologue "
+        f"(query_order, Z-order sort): median {statistics.median(prologue):.3f} ms; "
+        f"neighbor_packed (pack + order + launch, nearest): median "
+        f"{statistics.median(spans):.3f} ms (min {min(spans):.3f}, max {max(spans):.3f})")
+    # SIMT-efficiency proxy: lane-rounds a warp of 32 spends (32 x its
+    # slowest query's pops) per pop done, in the caller's order and in the
+    # kernel's launch order
+    box = rec.box_jobs.double()
+    for label, b in (("caller order", box), ("launch order", box[order.long()])):
+        w = b.view(-1, 32)
+        say(f"phase 8 SIMT proxy ({label}): sum over warps of 32 max(box_jobs) / "
+            f"sum box_jobs = {float(32 * w.amax(1).sum() / w.sum()):.4f}")
     # bound: the distinct bytes (each query's operands and outputs, the
     # packed tree, leaf table and cloud, each once) against the f32
     # operations this run's job counters count
-    ms, plain_ms, err, rec = records["nearest"]
     pops = float(rec.box_jobs.double().sum())
     pt_jobs = float(rec.point_jobs.double().sum())
     inner = pops - pt_jobs / 4
@@ -955,10 +1051,9 @@ def phase_tree(torch):
         f"{tree_bytes / 1e6:.1f} MB of packed tree and cloud, "
         f"{(inner * NEIGH_BOX_OPS + pt_jobs * NEIGH_POINT_OPS) / n:.1f} f32 ops "
         f"per query); estimate, not a bound: every job's bytes from HBM "
-        f"{job_bytes / 1e9:.3f} GB = {job_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms; "
-        f"within r={TREE_RADIUS}: {records['within'][0]:.3f} ms")
+        f"{job_bytes / 1e9:.3f} GB = {job_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return [kernel_row("neighbor", "neighbor.cu", "src/repro/kernels/traverse.py:369",
-                       launches, ms, plain_ms, max(err, records["within"][2]),
+                       launches, ms, plain_ms, max(err, records["within"][2], gate_err),
                        bound)]
 
 
@@ -1182,6 +1277,10 @@ def main() -> None:
     say(f"phase 1 build: {lib_path.name} in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {' '.join(nvcc.ARCH_FLAGS + nvcc.NVCC_FLAGS)})")
     for src, log in sorted(nvcc.build_log.items()):
+        if src == "neighbor.cu":
+            for label, stack, regs in neighbor_ptxas(log):
+                say(f"  ptxas neighbor.cu {label}: {regs}; {stack}")
+            continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  ptxas {src}: {line.strip()}")

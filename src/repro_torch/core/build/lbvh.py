@@ -15,6 +15,8 @@ triangles are on the card is built on the card.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..bvh import (BVH4, DatapathConfig, bvh_depth, fit_nodes, leaf_arrays,
@@ -34,13 +36,19 @@ def _expand_bits(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
+@functools.lru_cache(maxsize=None)
+def _spread_table(device: torch.device) -> torch.Tensor:
+    """``_expand_bits`` of every 10-bit value, built once per device (no
+    caller writes to it): a gather then spreads an axis in one op."""
+    return _expand_bits(torch.arange(1024, dtype=torch.int64, device=device))
+
+
 def morton3d(points01: torch.Tensor) -> torch.Tensor:
-    """30-bit Morton codes (int64) for points in [0, 1]^3.  points01: (N, 3)."""
-    scaled = torch.clamp(points01 * 1024.0, 0.0, 1023.0).to(torch.int64)
-    x = _expand_bits(scaled[:, 0])
-    y = _expand_bits(scaled[:, 1])
-    z = _expand_bits(scaled[:, 2])
-    return ((x << 2) | (y << 1) | z) & _U32
+    """30-bit Morton codes (int64) for points in [0, 1]^3.  points01: (N, 3).
+    Coordinates outside [0, 1] clamp; a NaN coordinate counts as 0."""
+    scaled = torch.nan_to_num(points01 * 1024.0, nan=0.0).clamp(0.0, 1023.0).to(torch.int64)
+    spread = _spread_table(scaled.device)[scaled]  # (N, 3)
+    return (spread[:, 0] << 2) | (spread[:, 1] << 1) | spread[:, 2]
 
 
 def lbvh_leaf_perm(boxes: Box, depth: int, arity: int = 4) -> torch.Tensor:

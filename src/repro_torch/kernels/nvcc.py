@@ -44,8 +44,8 @@ SIGNATURES = {
                          _I, _F, _I, _P, _P, _P, _P, _P, _P],
     "rayflex_distance": [_P, _P, _P, _I, _I, _I, _I, _P],
     "rayflex_norm": [_P, _P, _I, _I, _P],
-    "rayflex_neighbor": [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I,
-                         _I, _I, _F, _F, _P, _P, _P, _P, _P, _P],
+    "rayflex_neighbor": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
+                         _I, _P, _P, _P, _P, _P, _P, _P, _P],
     "rayflex_unified": [_P] * 4 + [_I, _P],
 }
 

@@ -2,17 +2,19 @@
 ``csrc/neighbor.cu``) and their packing.
 
 The port's counterpart of ``repro/kernels/traverse.py``.  Host side,
-:func:`pack_rays`, :func:`pack_bvh` and :func:`pack_point_bvh` build the
-reference's operands: a ``(16, n_pad)`` union of ray rows, node boxes as
-rows-by-nodes, the leaf table, and the triangle soup as 9 vertex rows (or
-the point cloud as 4 rows x, y, z, ||c||^2), each padded to a multiple of
-:data:`~repro_torch.kernels.common.LANES`.  :func:`traverse_packed` and
-:func:`neighbor_packed` launch the CUDA kernels on CUDA operands, one
-thread per ray or query.  On CPU operands :func:`traverse_packed` runs
-its kernel's plain version, ``core.wavefront.trace_wavefront``, on the
-unpacked tree and rays; :func:`neighbor_packed` raises, and
-:func:`neighbor_fused` runs ``core.neighbor.neighbor_wavefront`` on the
-CPU tree it was given.
+:func:`pack_rays` and :func:`pack_bvh` build the reference's operands: a
+``(16, n_pad)`` union of ray rows, node boxes as rows-by-nodes, the leaf
+table and the triangle soup as 9 vertex rows, each padded to a multiple
+of :data:`~repro_torch.kernels.common.LANES`; :func:`pack_point_bvh` lays
+a point tree out for the neighbour kernel's vector loads.
+:func:`traverse_packed` and :func:`neighbor_packed` launch the CUDA
+kernels on CUDA operands, one thread per ray or query; the neighbour
+kernel serves its queries in :func:`query_order`'s Z-order schedule and
+picks its variant by :func:`neighbor_variant`.  On CPU operands
+:func:`traverse_packed` runs its kernel's plain version,
+``core.wavefront.trace_wavefront``, on the unpacked tree and rays;
+:func:`neighbor_packed` raises, and :func:`neighbor_fused` runs
+``core.neighbor.neighbor_wavefront`` on the CPU tree it was given.
 """
 from __future__ import annotations
 
@@ -21,7 +23,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core.bvh import BVH4, DatapathConfig, level_offset, num_nodes, resolve_config
+from ..core.build.lbvh import morton3d
+from ..core.bvh import (BVH4, DatapathConfig, depth_of, level_offset, num_nodes,
+                        resolve_config)
 from ..core.neighbor import (PRUNE_SLACK, NeighborRecord, check_neighbor_args,
                              empty_neighbors, neighbor_wavefront, point_sq_norms)
 from ..core.types import Ray, Triangle
@@ -186,27 +190,61 @@ def traverse_fused(bvh: BVH4, rays: Ray, depth: int, *,
 class PackedPointBVH(NamedTuple):
     """The neighbour kernel's tree operands (see :func:`pack_point_bvh`)."""
 
-    nlo: torch.Tensor  # (3, nodes_pad) f32, padding columns +inf
-    nhi: torch.Tensor  # (3, nodes_pad) f32, padding columns -inf
-    leaf: torch.Tensor  # (1, leaf_pad) i32, padding -1
-    pts: torch.Tensor  # (4, pts_pad) f32: rows x | y | z | ||c||^2
+    kids: torch.Tensor  # (level_offset(depth - 1), 24) f32 child boxes
+    leaf: torch.Tensor  # (4**depth,) i32 leaf slots, -1 = empty
+    pts: torch.Tensor  # (4**depth, 4) f32: x | y | z | ||c||^2 per slot
+    root: torch.Tensor  # (2, 3) f32 root box lo, hi
 
 
 def pack_point_bvh(bvh: BVH4) -> PackedPointBVH:
-    """Point BVH4 -> the neighbour kernel's operands.  Nodes and leaves pack
-    as in :func:`pack_bvh`; the cloud packs as 4 rows, so each candidate's
-    gather also lands its squared norm, derived here from the same array
-    the tree holds."""
-    nodes_pad = ceil_to(bvh.node_lo.shape[0], LANES)
-    inf = float("inf")
-    nlo = pad_cols(bvh.node_lo.T, nodes_pad, inf).contiguous()
-    nhi = pad_cols(bvh.node_hi.T, nodes_pad, -inf).contiguous()
-    leaf_pad = ceil_to(bvh.leaf_tri.shape[0], LANES)
-    leaf = pad_cols(bvh.leaf_tri[None, :].to(torch.int32), leaf_pad, -1)
+    """Point BVH4 -> the neighbour kernel's operands, laid out for vector
+    loads.  Each node above the leaf parents holds its 4 children's boxes
+    as 24 contiguous floats, rows lo.x | lo.y | lo.z | hi.x | hi.y | hi.z
+    of 4 (the kernel never reads a leaf's box); each leaf slot holds its
+    point and the point's squared norm, derived here from the same array
+    the tree holds (zeros in an empty slot, which the kernel skips).  The
+    root box sets the query schedule's Z-order curve."""
+    depth = depth_of(bvh)
+    n_inner = level_offset(depth - 1)
+    lo = bvh.node_lo[1:4 * n_inner + 1].reshape(n_inner, 4, 3).transpose(1, 2)
+    hi = bvh.node_hi[1:4 * n_inner + 1].reshape(n_inner, 4, 3).transpose(1, 2)
+    kids = torch.cat([lo, hi], dim=1).reshape(n_inner, 24).contiguous()
+    leaf = bvh.leaf_tri.to(torch.int32).clone()
     pts = bvh.triangles.a
-    rows = torch.cat([pts.T, point_sq_norms(pts)[None, :]], dim=0)
-    pts_rows = pad_cols(rows, ceil_to(pts.shape[0], LANES))
-    return PackedPointBVH(nlo, nhi, leaf.contiguous(), pts_rows.contiguous())
+    rows = torch.cat([pts, point_sq_norms(pts)[:, None]], dim=1)
+    slots = torch.where((leaf >= 0)[:, None], rows[leaf.clamp(min=0).long()],
+                        torch.zeros((), dtype=rows.dtype, device=rows.device))
+    root = torch.stack([bvh.node_lo[0], bvh.node_hi[0]])
+    return PackedPointBVH(kids, leaf, slots.contiguous(), root.contiguous())
+
+
+#: register-list capacities of the neighbour kernel's variants
+#: (``csrc/neighbor.cu``); a larger k takes the general variant, whose list
+#: lives in device memory
+NEIGHBOR_CAPACITIES = (1, 2, 4, 8, 16, 32)
+
+
+def neighbor_variant(k: int) -> int | str:
+    """The neighbour kernel variant that serves ``k``: the smallest
+    register-list capacity that holds it, else ``"global"`` (the list in
+    device memory, any k)."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    return next((cap for cap in NEIGHBOR_CAPACITIES if k <= cap), "global")
+
+
+def query_order(points: torch.Tensor, lo: torch.Tensor,
+                hi: torch.Tensor) -> torch.Tensor:
+    """The neighbour kernel's query schedule: the (n,) i32 permutation that
+    sorts ``points`` along the 30-bit Z-order curve of the box ``lo`` ..
+    ``hi`` (the tree's root box), stably, so ties keep the caller's order.
+    Points outside the box clamp to its faces; a NaN coordinate counts as
+    the box's low face."""
+    diff = hi - lo
+    extent = torch.where(diff > 1e-12, diff, torch.full_like(diff, 1e-12))
+    codes = morton3d((points - lo) / extent)
+    # 30-bit codes: an int32 key halves the radix sort's passes
+    return torch.argsort(codes.to(torch.int32), stable=True).to(torch.int32)
 
 
 def neighbor_packed(packed: PackedPointBVH, queries: Ray, depth: int, k: int,
@@ -216,12 +254,10 @@ def neighbor_packed(packed: PackedPointBVH, queries: Ray, depth: int, k: int,
     pre-packed point-BVH operands, which must lie on a CUDA device (the
     CPU route is :func:`neighbor_fused`'s, or the ``tree_wavefront``
     backend's).  Same contract as ``neighbor_wavefront`` (its plain
-    version, whose record it returns bit for bit).  ``rounds`` is
-    ``max(box_jobs)``: a query is active from round 0 for exactly
-    ``box_jobs`` consecutive rounds."""
+    version, whose record it returns bit for bit), for every k >= 1.  The
+    queries run in :func:`query_order`'s schedule; each query's loop is its
+    own, so the order changes no field."""
     check_neighbor_args(k, mode)
-    if max_rounds is None:
-        max_rounds = level_offset(depth)
     n = queries.origin.shape[0]
     device = queries.origin.device
     if not (device.type == "cuda" and packed.pts.is_cuda):
@@ -230,34 +266,54 @@ def neighbor_packed(packed: PackedPointBVH, queries: Ray, depth: int, k: int,
                          f"{packed.pts.device}")
     if n == 0:
         return empty_neighbors(k, device)
-    n_pad = ceil_to(n, LANES)
-    ray_op = pack_rays(queries, n_pad)
+    order = query_order(queries.origin, packed.root[0], packed.root[1])
+    return neighbor_launch(packed, pack_rays(queries, ceil_to(n, LANES)), order,
+                           n, depth, k, mode=mode, max_rounds=max_rounds)
 
+
+def neighbor_launch(packed: PackedPointBVH, ray_op: torch.Tensor,
+                    order: torch.Tensor | None, n: int, depth: int, k: int, *,
+                    mode: str = "within",
+                    max_rounds: int | None = None) -> NeighborRecord:
+    """One launch of the neighbour kernel on packed CUDA operands: ``n``
+    queries in the ``(16, n_pad)`` operand ``ray_op``, served in ``order``
+    (None: the caller's), by :func:`neighbor_variant`'s variant for ``k``.
+    ``rounds`` is ``max(box_jobs)``: a query is active from round 0 for
+    exactly ``box_jobs`` consecutive rounds."""
+    check_neighbor_args(k, mode)
+    if max_rounds is None:
+        max_rounds = level_offset(depth)
+    variant = neighbor_variant(k)
+    capacity = 0 if variant == "global" else variant
     f32, i32 = torch.float32, torch.int32
-    nodes_pad, leaf_pad, pts_pad = (packed.nlo.shape[1], packed.leaf.shape[1],
-                                    packed.pts.shape[1])
-    ptr_rays = nvcc.check_cuda("rays", ray_op, f32, (N_RAY_ROWS, n_pad))
-    ptr_nlo = nvcc.check_cuda("nlo", packed.nlo, f32, (3, nodes_pad))
-    ptr_nhi = nvcc.check_cuda("nhi", packed.nhi, f32, (3, nodes_pad))
-    ptr_leaf = nvcc.check_cuda("leaf", packed.leaf, i32, (1, leaf_pad))
-    ptr_pts = nvcc.check_cuda("pts", packed.pts, f32, (4, pts_pad))
-    if nodes_pad < num_nodes(depth) or leaf_pad < 4**depth:
-        raise ValueError(f"packed tree too small for depth {depth}")
+    n_pad, n_leaf = ceil_to(n, LANES), 4**depth
+    ptrs = [nvcc.check_cuda("rays", ray_op, f32, (N_RAY_ROWS, n_pad)),
+            0 if order is None else nvcc.check_cuda("order", order, i32, (n,)),
+            nvcc.check_cuda("kids", packed.kids, f32, (level_offset(depth - 1), 24)),
+            nvcc.check_cuda("leaf", packed.leaf, i32, (n_leaf,)),
+            nvcc.check_cuda("pts", packed.pts, f32, (n_leaf, 4))]
+    if any(p % 16 for p in ptrs[2:]):
+        raise ValueError("the packed tree's operands must be 16-byte aligned")
+    device = ray_op.device
     dist = torch.empty((k, n), dtype=f32, device=device)
     index = torch.empty((k, n), dtype=i32, device=device)
     count = torch.empty((n,), dtype=i32, device=device)
     box = torch.empty((n,), dtype=i32, device=device)
     pt = torch.empty((n,), dtype=i32, device=device)
+    # the general list's scratch rows (the register variants need none)
+    lists = ((torch.empty((k, n), dtype=f32, device=device),
+              torch.empty((k, n), dtype=i32, device=device))
+             if capacity == 0 else None)
     # the plain version's two pruning constants, rounded to f32 as it
     # rounds them (a Python float against an f32 tensor)
     slack_mul = float(np.float32(1.0 + PRUNE_SLACK))
     slack_add = float(np.float32(PRUNE_SLACK))
-    nvcc.launch("rayflex_neighbor", ptr_rays, n_pad, n, ptr_nlo, ptr_nhi,
-                nodes_pad, ptr_leaf, 4**depth, ptr_pts, pts_pad,
-                level_offset(depth - 1), level_offset(depth), int(max_rounds),
-                int(k), int(mode == "nearest"), slack_mul, slack_add,
+    nvcc.launch("rayflex_neighbor", ptrs[0], n_pad, n, ptrs[1], *ptrs[2:],
+                level_offset(depth - 1), int(max_rounds), int(k),
+                int(mode == "nearest"), slack_mul, slack_add, capacity,
                 dist.data_ptr(), index.data_ptr(), count.data_ptr(),
-                box.data_ptr(), pt.data_ptr())
+                box.data_ptr(), pt.data_ptr(),
+                *((0, 0) if lists is None else (t.data_ptr() for t in lists)))
     return NeighborRecord(dist_sq=dist.T, index=index.T, valid=index.T >= 0,
                           count=count, box_jobs=box, point_jobs=pt,
                           rounds=box.max())

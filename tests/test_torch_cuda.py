@@ -31,8 +31,8 @@ from repro_torch.kernels.distance import (MODES, distance_3xtf32, distance_cuda,
 from repro_torch.kernels.raybox import raybox, raybox_plain
 from repro_torch.kernels.raytri import raytri, raytri_plain
 from repro_torch.kernels.common import LANES, ROW_K, ROW_MASK, ROW_RESET, ROW_VEC_A
-from repro_torch.kernels.traverse import (neighbor_packed, pack_bvh, pack_point_bvh,
-                                          traverse_packed)
+from repro_torch.kernels.traverse import (neighbor_launch, neighbor_packed, pack_bvh,
+                                          pack_point_bvh, pack_rays, traverse_packed)
 from repro_torch.kernels.unified import unified, unified_plain
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -200,7 +200,7 @@ def _cloud(cuda, n=6000, seed=3):
     return pts, PointCloudScene.from_points(pts, device=cuda)
 
 
-@pytest.mark.parametrize("k", [1, 16, 64])
+@pytest.mark.parametrize("k", [1, 16, 32, 33, 64, 65, 200])
 def test_neighbor_kernel_bit_equal_to_plain(cuda, k):
     pts, cloud = _cloud(cuda)
     queries = np.concatenate([pts[:1500], pts[:1000] + 0.01]).astype(np.float32)
@@ -214,6 +214,40 @@ def test_neighbor_kernel_bit_equal_to_plain(cuda, k):
         assert nvcc.launch_counts()["neighbor"] == before + 1
         for f in want._fields:
             assert _bits_equal(getattr(got, f), getattr(want, f)), (mode, f)
+
+
+def test_neighbor_kernel_in_any_query_order(cuda):
+    """Queries in a seeded random order, served in the kernel's Z-order
+    schedule and in the caller's: the same record."""
+    pts, cloud = _cloud(cuda)
+    rng = np.random.default_rng(11)
+    queries = (pts[rng.permutation(pts.shape[0])[:3000]]
+               + rng.normal(scale=0.02, size=(3000, 3))).astype(np.float32)
+    packed = pack_point_bvh(cloud.bvh)
+    rays = point_queries(queries, None, device=cuda)
+    want = neighbor_wavefront(cloud.bvh, point_sq_norms(cloud.points), rays, cloud.depth,
+                              16, "nearest")
+    got = neighbor_packed(packed, rays, cloud.depth, 16, mode="nearest")
+    caller = neighbor_launch(packed, pack_rays(rays, -(-3000 // LANES) * LANES), None, 3000,
+                             cloud.depth, 16, mode="nearest")
+    for rec in (got, caller):
+        for f in want._fields:
+            assert _bits_equal(getattr(rec, f), getattr(want, f)), f
+
+
+def test_engine_nearest_beyond_64_runs_the_kernel(cuda):
+    pts, cloud = _cloud(cuda)
+    eng = cloud.engine()
+    assert cloud.size >= eng.AUTO_TREE_MIN_POINTS
+    assert eng.resolve_neighbor_backend("nearest", "euclidean", k=65) == "tree_cuda"
+    q = torch.as_tensor(pts[::4], device=cuda)
+    nvcc.reset_launches()
+    got = eng.nearest(q, 65)
+    assert nvcc.launch_counts().get("neighbor", 0) >= 1
+    want = eng.neighbor_search(q, 65, mode="nearest", backend="tree_wavefront")
+    assert torch.equal(got.indices, want.index)
+    assert _bits_equal(got.scores, want.dist_sq)
+    assert torch.equal(got.valid, want.valid)
 
 
 def test_engine_kernel_backends_match_plain_backends(cuda):

@@ -208,7 +208,8 @@ def test_build_point_bvh_rejects():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mode,k,radius", [("within", 8, 0.6), ("nearest", 5, 0.3)])
+@pytest.mark.parametrize("mode,k,radius", [("within", 8, 0.6), ("nearest", 5, 0.3),
+                                           ("nearest", 70, 0.9)])
 def test_neighbor_wavefront_matches_jitted_reference(mode, k, radius):
     pts, queries = _pts(250, 5), _pts(48, 6)
     queries[:8] = pts[:8]  # self-queries: distance ~0 under cancellation
@@ -225,12 +226,13 @@ def test_neighbor_wavefront_matches_jitted_reference(mode, k, radius):
                                   _bits(np.asarray(want)[ok]))
 
 
-def test_neighbor_matches_reference_pallas_kernel():
+@pytest.mark.parametrize("mode,k,radius", [("within", 6, 0.9), ("nearest", 70, 0.9)])
+def test_neighbor_matches_reference_pallas_kernel(mode, k, radius):
     pts, queries = _pts(64, 7), _pts(32, 8)
     res, cloud = _carried(pts)
-    want = jneighbor_fused(res.bvh, jn.point_queries(jnp.asarray(queries), 0.9),
-                           res.depth, 6, mode="within", interpret=True)
-    _assert_record(_port(cloud, queries, 6, "within", 0.9), want, pts, queries)
+    want = jneighbor_fused(res.bvh, jn.point_queries(jnp.asarray(queries), radius),
+                           res.depth, k, mode=mode, interpret=True)
+    _assert_record(_port(cloud, queries, k, mode, radius), want, pts, queries)
 
 
 def test_clamped_push_matches_reference_at_a_tiny_stack(monkeypatch):
@@ -257,7 +259,8 @@ def test_neighbor_fused_cpu_path_is_the_plain_version():
     pts, queries = _pts(250, 12), _pts(40, 13)
     _, cloud = _carried(pts)
     packed = pack_point_bvh(cloud.bvh)
-    assert packed.pts.shape == (4, 256) and packed.leaf.shape == (1, 256)
+    assert packed.pts.shape == (256, 4) and packed.leaf.shape == (256,)
+    assert packed.kids.shape == (21, 24) and packed.root.shape == (2, 3)
     for mode, k, radius in (("within", 8, 0.7), ("nearest", 16, None)):
         want = _port(cloud, queries, k, mode, radius)
         rays = tn.point_queries(queries, radius, device="cpu")
