@@ -66,6 +66,21 @@ Phases (any failure exits non-zero and prints no result line):
    triangle beats bit-equal to the standalone stage kernels.  A stream of
    the same length with no reset (the kernel's worst case) is timed too;
 
+10. dynamic scenes at full size: clustered-1M's soup built, refit with its
+    own triangles (bit-equal to the build on every ``BVH4`` array), then
+    animated for 4 frames of rigid per-cluster motion, each frame
+    ``Scene.refit``, a closest ``engine.trace`` on ``backend="auto"``
+    (``cuda``) and ``engine.occluded`` of its shadow rays; on the last frame
+    the trace is bit-equal to ``trace_wavefront`` on all 2^20 rays, and
+    ``hit`` / ``t`` bit-equal to a rebuild's (``tri_index`` equal but where
+    both triangles give the ray the same ``t``); the ``per_ray`` oracle
+    equals the ``cuda`` backend on the frame's first 256 hit rays; one cache
+    miss per trace key and one re-pack per version.  Cloud-1M jittered and
+    ``PointCloudScene.refit``: ``tree_cuda`` bit-equal to ``tree_wavefront``,
+    ``dist_sq`` bit-equal to a rebuild's.  Timed: refit against rebuild,
+    the first trace after a refit against a steady one, the cloud refit
+    against ``from_points``;
+
 then one JSON ``kernels`` line (launches on each kernel's path, times,
 errors, bounds, library times) and the ``{"ok": true, "device": ...}``
 line.
@@ -75,6 +90,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -92,6 +108,12 @@ N_JOBS = 1 << 20  # stage-kernel comparison size (phases 2 and 3)
 N_CLUSTERS, PER_CLUSTER = 1024, 1024  # 1,048,576 triangles
 RES = 1024  # primary rays: RES x RES pinhole camera
 TIMED_REPS = 5
+#: back-to-back launches per device-alone timing of a small kernel
+DEVICE_REPS = 100
+#: the device-alone timings rotate over copies of a kernel's operands and
+#: outputs that together hold at least this many times the card's L2, so
+#: no launch finds its inputs left in L2 by the one before
+L2_SPAN = 4
 #: the goldens were traced by the reference on a CPU, where XLA contracts
 #: mul -> add into FMAs inside jitted code; t_num and t_denom each carry
 #: that rounding, so the quotient t may sit up to 2 ulps from the port's
@@ -150,6 +172,11 @@ STREAM_ROWS_IN, STREAM_ROWS_OUT = (18, 33, 34, 18), 16
 #: squares, 15 tree adds, the accumulator add; angular: 16 products, 14
 #: tree adds, 2 accumulator adds)
 STREAM_OPS = (RAYTRI_OPS, RAYBOX_OPS, 48, 32)
+# phase 10: dynamic scenes.  Cluster c moves by f * v_c at frame f, v_c ~
+# N(0, 0.1^2) per axis; the cloud's points jitter by N(0, 0.005^2)
+FRAMES, ANIM_SEED, ANIM_SIGMA = 4, 20240912, 0.1
+CLOUD_JITTER_SEED, CLOUD_JITTER = 20240913, 0.005
+ORACLE_RAYS = 256
 
 
 def fail(msg: str) -> None:
@@ -265,6 +292,44 @@ def event_ms(fn, reps: int = TIMED_REPS):
     and the output of the last run."""
     times, out = event_times(fn, reps)
     return statistics.median(times), out
+
+
+def l2_copies(nbytes: int) -> int:
+    """How many copies of a ``nbytes`` working set hold :data:`L2_SPAN`
+    times the card's L2."""
+    import torch
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    return max(1, -(-L2_SPAN * l2 // nbytes))
+
+
+def device_ms(entry: str, arg_sets, reps: int = DEVICE_REPS) -> float:
+    """The kernel alone on the device: ``reps`` back-to-back calls of C
+    entry point ``entry``, rotating over ``arg_sets`` (argument tuples of
+    operands and outputs prepared once), between one pair of CUDA events,
+    divided by ``reps`` (after one warm-up call on each set).  The stage
+    kernels are idempotent, and a ctypes call costs less than a launch, so
+    the queue stays full; no launch is counted."""
+    import torch
+    from repro_torch.kernels import nvcc
+    fn = getattr(nvcc.library(), entry)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(args):
+        err = fn(*args, stream)
+        if err != 0:
+            fail(f"{entry} returned CUDA error {err}")
+
+    for args in arg_sets:
+        call(args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(reps):
+        call(arg_sets[i % len(arg_sets)])
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def same_bits(label: str, got, ref) -> float:
@@ -599,27 +664,46 @@ def phase_main_path(torch):
         f"bound {trav_bound[0]:.3f} ms ({trav_bound[1]}; an upper estimate "
         f"of traffic: every job's bytes from HBM, which L2 can cut)")
 
+    f32, i32 = torch.float32, torch.int32
     rb_args = ray_box_operands(primary, fr["emitters"])
-    rb_ms, rb_k = event_ms(lambda: rb.raybox(*rb_args))
+    rb_wrap_ms, rb_k = event_ms(lambda: rb.raybox(*rb_args))
     rb_plain_ms, rb_p = event_ms(lambda: rb.raybox_plain(*rb_args))
     rb_err = same_bits("OpQuadbox kernel vs ray_box_test on the frame's "
                        "box-light jobs", rb_k, rb_p)
+    rb_ms, rb_same, rb_d = stage_device_ms(torch, "rayflex_raybox", rb_args, (4,),
+                                           (f32, i32, i32))
+    for outs in rb_d:
+        same_bits("OpQuadbox kernel, timed alone, vs ray_box_test", outs, rb_p)
     rt_args = ray_triangle_operands(fr["to_tri"], fr["corners"])
-    rt_ms, rt_k = event_ms(lambda: rt.raytri(*rt_args))
+    rt_wrap_ms, rt_k = event_ms(lambda: rt.raytri(*rt_args))
     rt_plain_ms, rt_p = event_ms(lambda: rt.raytri_plain(*rt_args))
     rt_err = same_bits("OpTriangle kernel vs ray_triangle_test on the frame's "
                        "light-facing jobs", rt_k, rt_p)
+    rt_ms, rt_same, rt_d = stage_device_ms(torch, "rayflex_raytri", rt_args, (),
+                                           (f32, f32, i32))
+    for outs in rt_d:
+        same_bits("OpTriangle kernel, timed alone, vs ray_triangle_test", outs, rt_p)
     n_rb, n_rt = rb_args[0].shape[1], rt_args[0].shape[1]
+    rb_bound = bound_ms(n_rb * RAYBOX_BYTES, n_rb * RAYBOX_OPS)
+    rt_bound = bound_ms(n_rt * RAYTRI_BYTES, n_rt * RAYTRI_OPS)
     say(f"phase 6 stage kernels on the frame's inputs: OpQuadbox {n_rb} jobs, "
         f"OpTriangle {n_rt} jobs, each bit-equal to its plain version")
+    for name, dev, same, n_sets, wrap, bound in (
+            ("OpQuadbox", rb_ms, rb_same, len(rb_d), rb_wrap_ms, rb_bound),
+            ("OpTriangle", rt_ms, rt_same, len(rt_d), rt_wrap_ms, rt_bound)):
+        say(f"phase 6 {name} kernel alone: {dev:.4f} ms a launch ({DEVICE_REPS} "
+            f"back-to-back launches of the C entry point between two events, over "
+            f"{n_sets} copies of its operands and outputs holding >= {L2_SPAN}x L2; "
+            f"{same:.4f} ms on one set, which L2 may serve in part); the wrapper's "
+            f"event window {wrap:.4f} ms (median of {TIMED_REPS}); bound "
+            f"{bound[0]:.4f} ms ({bound[1]}): {bound[0] / dev:.1%} of the bound's "
+            f"speed alone, {bound[0] / wrap:.1%} through the wrapper")
 
     rows = [
         kernel_row("raybox", "raybox.cu", "src/repro/kernels/raybox.py:22",
-                   launches, rb_ms, rb_plain_ms, rb_err,
-                   bound_ms(n_rb * RAYBOX_BYTES, n_rb * RAYBOX_OPS)),
+                   launches, rb_ms, rb_plain_ms, rb_err, rb_bound, wrapper_ms=rb_wrap_ms),
         kernel_row("raytri", "raytri.cu", "src/repro/kernels/raytri.py:19",
-                   launches, rt_ms, rt_plain_ms, rt_err,
-                   bound_ms(n_rt * RAYTRI_BYTES, n_rt * RAYTRI_OPS)),
+                   launches, rt_ms, rt_plain_ms, rt_err, rt_bound, wrapper_ms=rt_wrap_ms),
         kernel_row("traverse", "traverse.cu", "src/repro/kernels/traverse.py:95",
                    launches, trav_ms, trav_plain_ms, trav_err, trav_bound),
     ]
@@ -628,13 +712,36 @@ def phase_main_path(torch):
 
 
 def kernel_row(name, source, replaces, launches, ms, plain_ms, err, bound,
-               library_ms=None):
-    """One entry of the ``kernels`` line."""
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches[name], "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
-            "library_ms": library_ms}
+               library_ms=None, wrapper_ms=None):
+    """One entry of the ``kernels`` line.  ``wrapper_ms``, where given, is
+    the wrapper's event window beside ``ms``, the kernel alone."""
+    row = {"name": name, "route": "cuda",
+           "source": f"src/repro_torch/csrc/{source}", "replaces": replaces,
+           "launches": launches[name], "max_abs_err": err, "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+           "library_ms": library_ms}
+    if wrapper_ms is not None:
+        row["wrapper_ms"] = wrapper_ms
+    return row
+
+
+def stage_device_ms(torch, entry, operands, rows, dtypes):
+    """:func:`device_ms` of a kernel whose operands are (rows, n) columns,
+    into outputs of shape ``rows + (n,)`` allocated here, over
+    :func:`l2_copies` copies of the operands and outputs; and, beside it,
+    the time on one set.  Returns both times and every copy's outputs."""
+    n = operands[0].shape[-1]
+    nbytes = sum(x.numel() * x.element_size() for x in operands) + n * sum(
+        math.prod(rows) * torch.empty((), dtype=dt).element_size() for dt in dtypes)
+    sets, outs = [], []
+    for i in range(l2_copies(nbytes)):
+        ins = operands if i == 0 else tuple(x.clone() for x in operands)
+        out = tuple(torch.empty(rows + (n,), dtype=dt, device="cuda") for dt in dtypes)
+        sets.append((*(x.data_ptr() for x in ins), *(o.data_ptr() for o in out), n))
+        outs.append((ins, out))
+    ms = device_ms(entry, sets)
+    same_ms = device_ms(entry, sets[:1])
+    return ms, same_ms, [out for _, out in outs]
 
 
 # ---------------------------------------------------------------------------
@@ -789,9 +896,16 @@ def phase_brute(torch):
     dot_rel = scaled_error(a_k, a_p, dot_scale)
     del a_k, a_p, dot_scale
     dot_lib_ms, _ = event_ms(lambda: torch.matmul(gp, gcp.T))  # TF32 is off
-    norm_ms, n_k = event_ms(lambda: norms_cuda(glove.database))
+    norm_wrap_ms, n_k = event_ms(lambda: norms_cuda(glove.database))
     norm_plain_ms, n_p = event_ms(lambda: norms_plain(glove.database))
     norm_err = score_error(n_k, n_p, n_p)
+    n_d = torch.empty_like(n_k)
+    if l2_copies(glove.database.numel() * 4 + n_d.numel() * 4) != 1:
+        fail("glove's database no longer spans the L2 rotation on its own")
+    norm_ms = device_ms("rayflex_norm", [(glove.database.data_ptr(), n_d.data_ptr(),
+                                          *glove.database.shape)])
+    if not torch.equal(bits(n_d), bits(n_k)):
+        fail("norm kernel, timed alone, differs from its wrapper's output")
     norm_lib_ms, _ = event_ms(lambda: torch.linalg.vector_norm(glove.database, dim=1))
     m, n, d = qp.shape[0], cp.shape[0], qp.shape[1]
     dist_bound, dist_f32 = distance_bounds(m, n, d, euclidean=True)
@@ -810,7 +924,10 @@ def phase_brute(torch):
         f"torch.matmul {dot_lib_ms:.3f}, bound {dot_bound[0]:.3f} {dot_bound[1]} "
         f"[3xTF32], old f32 bound {dot_f32[0]:.3f} {dot_f32[1]}), max |err| "
         f"{dot_err:.3g} ({dot_rel:.3g} of |q||c|; gate {SCORE_RTOL:g})")
-    say(f"phase 7 norm kernel {gn_raw} x {GLOVE_D}: {norm_ms:.4f} ms (plain "
+    say(f"phase 7 norm kernel {gn_raw} x {GLOVE_D}: {norm_ms:.4f} ms alone "
+        f"({DEVICE_REPS} back-to-back launches of the C entry point on one set, "
+        f"itself over {L2_SPAN}x L2; the wrapper's "
+        f"event window {norm_wrap_ms:.4f}; plain "
         f"{norm_plain_ms:.4f}, torch.linalg.vector_norm {norm_lib_ms:.4f} [returns "
         f"the root], bound {norm_bound[0]:.4f} {norm_bound[1]}), max |err| "
         f"{norm_err:.3g}")
@@ -841,7 +958,7 @@ def phase_brute(torch):
     return rows + [
         kernel_row("norm", "distance.cu", "src/repro/kernels/distance.py:65",
                    launches, norm_ms, norm_plain_ms, norm_err, norm_bound,
-                   norm_lib_ms),
+                   norm_lib_ms, wrapper_ms=norm_wrap_ms),
     ], vectors
 
 
@@ -1257,6 +1374,218 @@ def phase_stream(torch, stage_jobs, vectors):
                        launches, ms, plain_ms, err, bound)]
 
 
+# ---------------------------------------------------------------------------
+# phase 10: dynamic scenes (refit of triangles and of a point cloud)
+# ---------------------------------------------------------------------------
+
+
+def phase_dynamic(torch):
+    from repro_torch.api import PointCloudScene, Ray, Scene, make_ray
+    from repro_torch.core.build.quality import clustered_soup
+    from repro_torch.core.datapath import ray_triangle_test
+    from repro_torch.core.neighbor import (leaf_dist_sq, neighbor_wavefront,
+                                           point_queries, point_sq_norms)
+    from repro_torch.core.types import Triangle
+    from repro_torch.core.wavefront import trace_wavefront
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.distance import norms_plain
+
+    tri = clustered_soup(np.random.default_rng(SEED), N_CLUSTERS, PER_CLUSTER, device="cuda")
+    vel = torch.as_tensor(np.random.default_rng(ANIM_SEED).normal(
+        0.0, ANIM_SIGMA, (N_CLUSTERS, 3)).astype(np.float32), device="cuda")
+    vel = vel.repeat_interleave(PER_CLUSTER, dim=0)  # clustered_soup's order
+    frames = [Triangle(*(v + f * vel for v in tri)) for f in range(1, FRAMES + 1)]
+    points = clustered_soup(np.random.default_rng(SEED + 3), TREE_CLUSTERS,
+                            TREE_PER_CLUSTER, device="cuda").a
+    jitter = np.random.default_rng(CLOUD_JITTER_SEED).normal(
+        0.0, CLOUD_JITTER, tuple(points.shape)).astype(np.float32)
+    moved_pts = points + torch.as_tensor(jitter, device="cuda")
+    light = torch.tensor([9.0, 11.0, -13.0], device="cuda")
+
+    def shadow_rays(primary, hits):
+        idx = torch.nonzero(hits.hit).squeeze(1)
+        p = primary.origin[idx] + hits.t[idx, None] * primary.direction[idx]
+        to_light = light - p
+        dist = torch.linalg.vector_norm(to_light, dim=1)
+        return make_ray(p, to_light / dist[:, None], dist, device="cuda")
+
+    # ---- one counted drive of the path -------------------------------------
+    torch.cuda.synchronize()
+    nvcc.reset_launches()
+    scene = Scene.from_triangles(tri, device="cuda")
+    built = scene.bvh
+    engine = scene.engine()
+    scene.refit(tri)  # the build's own triangles
+    refit_same = scene.bvh
+    org, dirs = camera_rays(scene)
+    primary = make_ray(org, dirs, device="cuda")
+    if engine.resolve_trace_backend() != "cuda":
+        fail(f"auto resolved the trace to {engine.resolve_trace_backend()!r}")
+    series = [engine.trace(primary)]
+    shadow_blocks = set()
+    for moved in frames:
+        scene.refit(moved)
+        hits = engine.trace(primary)
+        shadow = shadow_rays(primary, hits)
+        occluded = engine.occluded(shadow)
+        series.append(hits)
+        shadow_blocks.add(engine.plan_for("trace", shadow.origin.shape[0],
+                                          ray_type="shadow").key)
+    cloud = PointCloudScene.from_points(points, device="cuda")
+    c_eng = cloud.engine()
+    cloud.refit(moved_pts)
+    refit_sq = cloud.index.sq_norms
+    if c_eng.resolve_neighbor_backend("nearest", "euclidean", k=K_TREE) != "tree_cuda":
+        fail("auto did not resolve the refit cloud's nearest to tree_cuda")
+    near = c_eng.nearest(moved_pts, K_TREE)
+    torch.cuda.synchronize()
+    launches = nvcc.launch_counts()
+    for name in ("traverse", "norm", "neighbor"):
+        if launches.get(name, 0) < 1:
+            fail(f"the dynamic-scene path launched no {name} kernel ({launches})")
+    say(f"phase 10 drive: build, refit with the build's triangles, {FRAMES} frames of "
+        f"refit + closest trace + occluded, cloud refit + nearest; launches "
+        + ", ".join(f"{k} {launches[k]}" for k in ("traverse", "norm", "neighbor")))
+
+    # ---- refit of unchanged geometry: the build, bit for bit ---------------
+    same_bits("refit of the build's own triangles vs the build",
+              (refit_same.node_lo, refit_same.node_hi, refit_same.leaf_tri,
+               refit_same.leaf_perm, *refit_same.triangles),
+              (built.node_lo, built.node_hi, built.leaf_tri, built.leaf_perm,
+               *built.triangles))
+    del built, refit_same
+
+    # ---- the last frame ------------------------------------------------------
+    moved = frames[-1]
+    n_rays = primary.origin.shape[0]
+    want = trace_wavefront(scene.bvh, primary, scene.depth)
+    same_bits(f"cuda trace on the refit scene vs trace_wavefront, all {n_rays} rays",
+              hits, want)
+    if bool(hits.stack_overflow.any()) or bool(torch.isnan(hits.t).any()):
+        fail("last frame: stack overflow or NaN t")
+    n_shadow = shadow.origin.shape[0]
+    same_bits(f"occluded on the refit scene vs trace_wavefront's shadow hit, all "
+              f"{n_shadow} shadow rays", (occluded,),
+              (trace_wavefront(scene.bvh, shadow, scene.depth, ray_type="shadow").hit,))
+    rebuild = Scene.from_triangles(moved, device="cuda")
+    rb_engine = rebuild.engine()
+    rb_hits = rb_engine.trace(primary)
+    same_bits("refit vs rebuild: hit and t", (hits.hit, hits.t), (rb_hits.hit, rb_hits.t))
+    d = torch.nonzero(hits.tri_index != rb_hits.tri_index).squeeze(1)
+
+    def t_of(idx):
+        r = Ray(*(f[d] for f in primary))
+        res = ray_triangle_test(r, Triangle(*(v[idx[d].long()] for v in moved)))
+        return res.t_num / res.t_denom
+
+    same_bits(f"the {d.numel()} rays whose triangles differ: both triangles' t",
+              (t_of(hits.tri_index),), (t_of(rb_hits.tri_index),))
+    n_hit = int(hits.hit.sum())
+    say(f"phase 10 last frame (frame {FRAMES}): {n_rays} camera rays, {n_hit} hits; the "
+        f"cuda trace on the refit scene bit-equal to trace_wavefront on every field; "
+        f"hit and t bit-equal to a rebuild's on every ray; tri_index differs on {d.numel()} "
+        f"rays, each a tie (both triangles give the ray the same t); occluded equal to "
+        f"trace_wavefront's shadow hit on all {n_shadow} shadow rays "
+        f"({int(occluded.sum())} occluded)")
+    decay = ", ".join(f"{f}: {r.quadbox_jobs.double().mean().item():.3f} / "
+                      f"{r.triangle_jobs.double().mean().item():.3f}"
+                      for f, r in enumerate(series))
+    say(f"phase 10 jobs per camera ray on the refit tree, box / triangle, by frame "
+        f"(0: refit of the build) {decay}; rebuild of frame {FRAMES}: "
+        f"{rb_hits.quadbox_jobs.double().mean().item():.3f} / "
+        f"{rb_hits.triangle_jobs.double().mean().item():.3f}")
+    # ---- the engine's cache over the frames ---------------------------------
+    info = engine.cache_info()
+    want_entries = 2 + len(shadow_blocks)  # closest, prepare, a shadow plan each
+    if engine.prepares != FRAMES + 1 or info.misses != info.entries or \
+            info.entries != want_entries:
+        fail(f"cache over the frames: {info}, {engine.prepares} prepares; want one "
+             f"miss per key ({want_entries} keys) and {FRAMES + 1} prepares")
+    say(f"phase 10 cache: {info} over {FRAMES + 1} closest traces and {FRAMES} "
+        f"occluded calls: one miss per key (the closest trace, the prepare hook, "
+        f"{len(shadow_blocks)} shadow plans), {engine.prepares} re-packs for "
+        f"{FRAMES + 1} versions")
+    say(f"phase 10 plan_for('trace', 2**20): {engine.plan_for('trace', 2**20)}; "
+        f"batch_multiple: trace {engine.batch_multiple('trace')}, nearest "
+        f"{c_eng.batch_multiple('nearest', k=K_TREE)}")
+
+    for label, sc in (("refit", scene), ("rebuild", rebuild)):
+        st = sc.stats()
+        say(f"phase 10 stats ({label}, frame {FRAMES}): sah_cost {st.sah_cost:.6g}, "
+            f"mean jobs {st.mean_jobs:.3f} (box {st.mean_quadbox_jobs:.3f}, triangle "
+            f"{st.mean_triangle_jobs:.3f}) on 256 probe rays, branching "
+            f"{st.mean_branching_factor:.4f}, occupancy {st.occupancy:.4f}, "
+            f"{st.bytes_per_node} B a node")
+
+    # ---- the oracle on the frame's first hit rays ---------------------------
+    first = torch.nonzero(hits.hit).squeeze(1)[:ORACLE_RAYS]
+    sub = Ray(*(f[first] for f in primary))
+    t0 = time.perf_counter()
+    oracle = engine.trace(sub, backend="per_ray")
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t0
+    same_bits(f"per_ray oracle vs the cuda backend on the frame's first {ORACLE_RAYS} "
+              f"hit rays", oracle, engine.trace(sub))
+    say(f"phase 10 oracle: per_ray on the last frame's first {ORACLE_RAYS} hit rays "
+        f"equals the cuda backend on every field ({oracle_s:.2f} s on the host loop, "
+        f"{int(oracle.quadbox_jobs.sum())} pops)")
+
+    # ---- the refit cloud ----------------------------------------------------
+    n_pts = moved_pts.shape[0]
+    want_sq = norms_plain(cloud.index.database)[0]
+    norm_err = score_error(refit_sq, want_sq, want_sq)
+    say(f"phase 10 cloud index norms after the refit: norm kernel vs norms_plain on "
+        f"all {n_pts} x 3 rows, max |err| {norm_err:.3g} (gate {SCORE_RTOL:g} of the "
+        f"norm)")
+    rays = point_queries(moved_pts, None, device="cuda")
+    got = c_eng.neighbor_search(moved_pts, K_TREE, mode="nearest")
+    want = neighbor_wavefront(cloud.bvh, point_sq_norms(cloud.points), rays,
+                              cloud.depth, K_TREE, "nearest")
+    same_bits(f"tree_cuda vs tree_wavefront on the refit cloud, all {n_pts} queries",
+              got, want)
+    if not torch.equal(near.indices, got.index):
+        fail("the engine's nearest on the refit cloud differs from its tree_cuda record")
+    rb_cloud = PointCloudScene.from_points(moved_pts, device="cuda")
+    rb_near = rb_cloud.engine().nearest(moved_pts, K_TREE)
+    same_bits("refit cloud vs rebuild: dist_sq and valid", (near.scores, near.valid),
+              (rb_near.scores, rb_near.valid))
+    q, slot = torch.nonzero(near.indices != rb_near.indices, as_tuple=True)
+    pair = torch.stack([near.indices[q, slot], rb_near.indices[q, slot]], 1).long()
+    d2 = leaf_dist_sq(moved_pts[q], moved_pts[pair], point_sq_norms(moved_pts)[pair])
+    same_bits("the slots whose indices differ: both points' distance",
+              (d2[:, 0],), (d2[:, 1],))
+    rb_rec = rb_cloud.engine().neighbor_search(moved_pts, K_TREE, mode="nearest")
+    say(f"phase 10 cloud: {n_pts} points jittered by N(0, {CLOUD_JITTER}^2) (seed "
+        f"{CLOUD_JITTER_SEED}), PointCloudScene.refit; nearest k={K_TREE} on tree_cuda "
+        f"bit-equal to tree_wavefront on every field; dist_sq bit-equal to a rebuild's, "
+        f"indices differ in {q.numel()} slots, each a tie; box / point jobs a query "
+        f"{want.box_jobs.double().mean().item():.3f} / "
+        f"{want.point_jobs.double().mean().item():.3f} (rebuild "
+        f"{rb_rec.box_jobs.double().mean().item():.3f} / "
+        f"{rb_rec.point_jobs.double().mean().item():.3f})")
+
+    # ---- timings ------------------------------------------------------------
+    refit_ms = wall_ms(lambda: scene.refit(moved))
+    build_ms = wall_ms(lambda: Scene.from_triangles(moved, device="cuda"))
+    first_trace = []
+    for _ in range(TIMED_REPS):
+        scene.refit(moved)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.trace(primary)
+        torch.cuda.synchronize()
+        first_trace.append((time.perf_counter() - t0) * 1e3)
+    steady_ms = wall_ms(lambda: engine.trace(primary))
+    c_refit_ms = wall_ms(lambda: cloud.refit(moved_pts))
+    c_build_ms = wall_ms(lambda: PointCloudScene.from_points(moved_pts, device="cuda"))
+    say(f"phase 10 times (median of {TIMED_REPS}): Scene.refit {refit_ms:.3f} ms vs "
+        f"Scene.from_triangles {build_ms:.3f} ms ({N_CLUSTERS * PER_CLUSTER} triangles); "
+        f"first trace after a refit (re-pack included) "
+        f"{statistics.median(first_trace):.3f} ms vs steady {steady_ms:.3f} ms "
+        f"({n_rays} rays); PointCloudScene.refit {c_refit_ms:.3f} ms vs from_points "
+        f"{c_build_ms:.3f} ms ({n_pts} points)")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_dir():
         fail(f"{SRC / 'repro_torch'} or {GOLDEN} missing: run from a "
@@ -1313,6 +1642,7 @@ def main() -> None:
     kernels += rows
     kernels += phase_tree(torch)
     kernels += phase_stream(torch, stage_jobs, vectors)
+    phase_dynamic(torch)
 
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -5,7 +5,10 @@
     scene = Scene.from_triangles(vertices)           # LBVH on the card
     engine = scene.engine()
     hits = engine.trace(make_ray(origins, directions))       # closest-hit
-    shadowed = engine.trace(shadow_rays, ray_type="shadow").hit
+    shadowed = engine.occluded(shadow_rays)          # the shadow trace's hit
+    scene.refit(moved_vertices)                      # animate: same topology,
+    hits = engine.trace(rays)                        # one re-pack, nothing rebuilt
+    print(scene.stats())                             # SAH cost + jobs per ray
 
     index = VectorIndex.from_database(embeddings)    # ||c||^2 on the card
     near = index.engine(chunk_size=1024).nearest(queries, k=10, metric="cosine")
@@ -14,14 +17,23 @@
     engine = cloud.engine()
     knn = engine.nearest(queries, k=16)              # tree or brute, auto
     counts = engine.count_within(queries, radius=0.1)
+    cloud.refit(moved_points)                        # animate the cloud
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
-from .core.build import BuildResult, builders, register_builder  # noqa: F401
+from .core.build import (  # noqa: F401
+    BuildResult,
+    TreeStats,
+    builders,
+    refit,
+    refit_points,
+    register_builder,
+)
 from .core.bvh import BVH4, DEFAULT_CONFIG, DatapathConfig  # noqa: F401
 from .core.knn import METRICS, RADIUS_METRICS  # noqa: F401
 from .core.neighbor import NEIGHBOR_MODES, NeighborRecord  # noqa: F401
 from .core.session import (  # noqa: F401
+    CacheInfo,
     NearestResult,
     PointCloudScene,
     QueryEngine,
@@ -44,6 +56,7 @@ __all__ = [
     "BVH4",
     "Box",
     "BuildResult",
+    "CacheInfo",
     "DEFAULT_CONFIG",
     "DatapathConfig",
     "METRICS",
@@ -58,6 +71,7 @@ __all__ = [
     "SHADOW_T_MIN",
     "Scene",
     "TraceResult",
+    "TreeStats",
     "Triangle",
     "VectorIndex",
     "WithinResult",
@@ -65,6 +79,8 @@ __all__ = [
     "distance_backends",
     "make_ray",
     "neighbor_backends",
+    "refit",
+    "refit_points",
     "register_builder",
     "register_distance_backend",
     "register_neighbor_backend",

@@ -2,7 +2,9 @@
 
 The port's counterpart of ``repro/core/build/__init__.py``.  Builders
 register under a name and all emit the same implicit :class:`BVH4`
-layout.  Only ``"lbvh"`` is ported so far.
+layout.  Only ``"lbvh"`` is ported so far.  The package also holds the
+point-cloud builder (``points``), the refit of a moved soup (``refit``)
+and the tree-quality metrics (``quality``).
 """
 from __future__ import annotations
 
@@ -63,3 +65,14 @@ def build(triangles: Triangle, builder: str = "lbvh", depth: int | None = None,
 # builder modules self-register on import
 from . import lbvh  # noqa: E402,F401
 from .lbvh import build_bvh4  # noqa: E402,F401
+from .points import build_point_bvh, point_boxes, refit_points  # noqa: E402,F401
+from .quality import (  # noqa: E402,F401
+    TreeStats,
+    clustered_soup,
+    mean_branching_factor,
+    mean_jobs_per_ray,
+    probe_rays,
+    sah_cost,
+    tree_stats,
+)
+from .refit import refit  # noqa: E402,F401

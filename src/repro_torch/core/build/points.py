@@ -8,16 +8,16 @@ record stays a valid soup; the neighbour engines read the cloud back as
 ``bvh.triangles.a``.  There is no degenerate cull: a point's box is
 zero-area by nature, so every point is live.
 
-Only the LBVH core is ported; ``builder="sah"`` raises
-``NotImplementedError`` until the SAH builder is, and so does the refit of
-a moved cloud.
+A moved cloud refits through :func:`refit_points`, the cull-free twin of
+the triangle refit.  Only the LBVH core is ported; ``builder="sah"`` raises
+``NotImplementedError`` until the SAH builder is.
 """
 from __future__ import annotations
 
 import torch
 
-from ..bvh import (BVH4, DatapathConfig, bvh4_depth, encode_nodes, fit_nodes,
-                   leaf_arrays, resolve_config)
+from ..bvh import (BVH4, DatapathConfig, bvh4_depth, depth_of, encode_nodes,
+                   fit_nodes, leaf_arrays, resolve_config)
 from ..types import Box, Triangle
 from . import BuildResult
 from .lbvh import lbvh_leaf_perm
@@ -90,3 +90,26 @@ def build_point_bvh(points: torch.Tensor, builder: str = "lbvh",
     bvh = BVH4(node_lo=node_lo, node_hi=node_hi, leaf_tri=leaf_tri,
                triangles=_point_soup(points), leaf_perm=leaf_perm)
     return BuildResult(bvh=bvh, builder=builder, depth=depth, config=config)
+
+
+def refit_points(bvh: BVH4, points: torch.Tensor,
+                 config: DatapathConfig | None = None) -> BVH4:
+    """Topology-preserving refit of a moved cloud (same count, same order).
+    The triangle refit re-evaluates the zero-area cull, which would cull
+    every point, so clouds refit through this cull-free twin."""
+    points = _check_points(points, "refit_points")
+    config = _check_point_config(config, "refit_points")
+    n_built = bvh.triangles.a.shape[0]
+    if points.shape[0] != n_built:
+        raise ValueError(
+            f"refit_points needs the built cloud's {n_built} points, got "
+            f"{points.shape[0]} (topology is preserved -- rebuild to "
+            "change the cloud)")
+    depth = depth_of(bvh)
+    boxes = point_boxes(points)
+    live = torch.ones((n_built,), dtype=torch.bool, device=points.device)
+    leaf_tri, leaf_lo, leaf_hi = leaf_arrays(bvh.leaf_perm, boxes, live)
+    node_lo, node_hi = fit_nodes(leaf_lo, leaf_hi, depth)
+    node_lo, node_hi = encode_nodes(node_lo, node_hi, depth, config)
+    return BVH4(node_lo=node_lo, node_hi=node_hi, leaf_tri=leaf_tri,
+                triangles=_point_soup(points), leaf_perm=bvh.leaf_perm)

@@ -35,6 +35,13 @@ class DatapathConfig(NamedTuple):
         return (f"bvh{self.arity}_s{self.stack_size}"
                 f"_{self.precision}_{self.node_format}")
 
+    @property
+    def box_bytes_per_node(self) -> int:
+        """Node-box storage (lo + hi, 3 axes) per node: 24 B for the fp32
+        boxes of :data:`DEFAULT_CONFIG`, the only config ported so far."""
+        resolve_config(self)
+        return 24
+
 
 DEFAULT_CONFIG = DatapathConfig()
 

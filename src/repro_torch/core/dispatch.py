@@ -9,7 +9,12 @@ Per-block scalar statistics (``rounds``) reduce by ``max``, which equals
 the one-call value (a ray is active for exactly ``quadbox_jobs``
 consecutive rounds wherever it runs).
 
-Sharding over several devices is not ported yet: ``shards`` other than 1
+``shard="auto" | int`` resolves through :func:`resolve_shards`.  As in
+the reference, ``"auto"`` is the devices the engine shards over, capped
+at the batch, and an explicit count above the data's device count raises
+``ValueError``.  The fan-out over several cards is not ported yet, so the
+port shards over one card: ``"auto"`` resolves to 1 on a host with any
+number of cards, and an explicit count above 1 that the cards could serve
 raises ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -34,16 +39,43 @@ def check_count(name: str, value, minimum: int = 1) -> Optional[int]:
     return int(value)
 
 
-def check_shards(shard) -> int:
-    """The port runs on one device: ``None`` and ``1`` pass; a malformed
-    count raises ``ValueError``, any other count ``NotImplementedError``."""
+def available_devices(device=None) -> int:
+    """The devices that hold data on ``device`` (default CUDA): the CUDA
+    device count, 1 on the CPU.  An explicit shard count may not exceed
+    it."""
+    device = torch.device("cuda" if device is None else device)
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+#: the devices one query fans out over; the fan-out over several cards is
+#: not ported yet
+SHARDABLE_DEVICES = 1
+
+
+def resolve_shards(shard, n_rows: Optional[int] = None, device=None) -> int:
+    """``shard="auto" | int | None`` -> a concrete shard count for data on
+    ``device``.  ``"auto"`` is :data:`SHARDABLE_DEVICES` capped at the
+    batch; an explicit count must be a positive integer no larger than
+    :func:`available_devices` (``ValueError`` otherwise), and a count
+    above 1 raises ``NotImplementedError``."""
     if shard is None:
         return 1
-    if not isinstance(shard, str) and check_count("shard", shard) == 1:
-        return 1
-    raise NotImplementedError(
-        f"shard={shard!r}: sharding over several devices is not ported yet "
-        "(repro_torch runs on one device)")
+    if isinstance(shard, str):
+        if shard != "auto":
+            raise ValueError(f"shard must be 'auto' or an int >= 1, got {shard!r}")
+        shards = SHARDABLE_DEVICES
+        if n_rows is not None:
+            shards = min(shards, n_rows)
+        return max(1, shards)
+    shards = check_count("shard", shard)
+    n_dev = available_devices(device)
+    if shards > max(n_dev, 1):
+        raise ValueError(f"shard={shards} exceeds the {n_dev} available device(s)")
+    if shards > 1:
+        raise NotImplementedError(
+            f"shard={shards}: the fan-out over several cards is not ported "
+            "yet (repro_torch runs on one)")
+    return shards
 
 
 def ceil_to(n: int, multiple: int) -> int:
@@ -85,6 +117,11 @@ class ExecPlan(NamedTuple):
     n_blocks: int  # ceil(n / block)
     shards: int = 1
 
+    @property
+    def key(self) -> tuple:
+        """The plan's part of a built-function cache key."""
+        return (self.shards, self.block)
+
 
 def make_plan(n: int, *, pad_multiple: int, shards: int = 1,
               chunk_size: Optional[int] = None,
@@ -94,7 +131,7 @@ def make_plan(n: int, *, pad_multiple: int, shards: int = 1,
     lane_multiple)``."""
     if n <= 0:
         raise ValueError("make_plan needs n >= 1; guard empty batches first")
-    shards = check_shards(shards)
+    shards = check_count("shards", shards)
     chunk_size = check_count("chunk_size", chunk_size)
     multiple = (pad_multiple if lane_multiple is None
                 else max(pad_multiple, int(lane_multiple)))

@@ -6,6 +6,8 @@ pluggable, and every backend of a kind returns the same record.
 
 Trace backends (:class:`TraceResult`):
 
+* ``"per_ray"`` -- the oracle (``core/traversal.trace_rays``): one ray at a
+  time on a host-side stack, closest hits only;
 * ``"wavefront"`` -- the plain batch-level engine
   (``core/wavefront.trace_wavefront``), on any device;
 * ``"cuda"`` -- the fused traversal kernel (``kernels/traverse.
@@ -36,8 +38,15 @@ by cloud size and selectivity (:meth:`QueryEngine.resolve_neighbor_backend`).
 
 Every query runs ``pad -> query -> unpad`` through ``core/dispatch``;
 ``chunk_size`` streams a batch through fixed-size blocks, and ``rounds``
-reduces by max over blocks.  Not ported yet: ``refit``, ``stats``,
-sharding and the ``per_ray`` oracle.
+reduces by max over blocks.  ``shard="auto"`` resolves to one shard on
+one card (:func:`~repro_torch.core.dispatch.resolve_shards`).  The engine
+counts the run functions it builds per (query, backend, static
+parameters, plan, row signature), keyed as the reference keys its
+compiled functions (:meth:`QueryEngine.cache_info`), and prepares each
+backend's context once per scene or cloud version, so an animated scene
+(:meth:`Scene.refit`, :meth:`PointCloudScene.refit`) misses no key per
+frame and re-packs once.  Not ported yet: the fan-out over
+several cards, the SAH builder and every config but the default.
 """
 from __future__ import annotations
 
@@ -49,18 +58,23 @@ import torch
 
 from ..kernels.common import LANES
 from .build import build as build_structure
-from .build.points import build_point_bvh
+from .build import refit as refit_bvh
+from .build import tree_stats
+from .build.points import build_point_bvh, refit_points
+from .build.quality import TreeStats
 from .bvh import BVH4, DatapathConfig, resolve_config
 from .device import resolve_device
-from .dispatch import check_count, check_shards, concat_rows, make_plan, split_blocks
+from .dispatch import (ExecPlan, check_count, concat_rows, make_plan, resolve_shards,
+                       split_blocks)
 from .knn import (METRICS, RADIUS_METRICS, angular_scores, check_k, check_radius,
                   cosine_epilogue, cosine_similarity, count_within_scores, knn,
                   pairwise_scores, radius_count, radius_search, select_topk,
                   select_within)
 from .neighbor import (NeighborRecord, empty_neighbors, neighbor_wavefront,
                        point_queries, point_sq_norms)
+from .traversal import trace_rays
 from .types import Ray, Triangle, as_f32
-from .wavefront import RAY_TYPES, default_t_min, trace_wavefront
+from .wavefront import RAY_TYPES, SHADOW_T_MIN, default_t_min, trace_wavefront
 
 
 class TraceResult(NamedTuple):
@@ -93,8 +107,19 @@ class WithinResult(NamedTuple):
     within: torch.Tensor  # (M, k) bool  which of the k slots are in range
 
 
+class CacheInfo(NamedTuple):
+    hits: int
+    misses: int
+    entries: int
+
+
 #: padding multiple of every batch (the kernel backends raise it to LANES)
 DEFAULT_PAD_MULTIPLE = 8
+
+
+def _elem_key(tree) -> tuple:
+    """Per-row signature: each leaf's trailing shape and dtype."""
+    return tuple((tuple(x.shape[1:]), str(x.dtype)) for x in tree)
 
 # name -> (supported ray types,
 #          build(scene, ray_type, t_min, max_rounds) -> fn(ctx, rays),
@@ -163,6 +188,24 @@ def trace_backend_ray_types(name: str) -> tuple[str, ...]:
         raise ValueError(f"unknown trace backend {name!r} "
                          f"(registered: {trace_backends()})")
     return _TRACE_BACKENDS[name][0]
+
+
+@register_trace_backend("per_ray", ray_types=("closest",))
+def _build_per_ray(scene: "Scene", ray_type: str, t_min: float, max_rounds):
+    """The per-ray oracle (closest hits only), on the scene's device."""
+    if t_min:
+        raise ValueError("per_ray backend has no t_min support; "
+                         "use backend='wavefront'")
+    if max_rounds is not None:
+        raise ValueError("per_ray backend has no max_rounds support; "
+                         "use backend='wavefront'")
+
+    def run(bvh, rays):
+        rec = trace_rays(bvh, rays, scene.depth, scene.config)
+        # a ray is active for exactly quadbox_jobs consecutive rounds, so
+        # the batch-level round count is the max per-ray job count
+        return TraceResult(*rec, rounds=rec.quadbox_jobs.max())
+    return run
 
 
 @register_trace_backend("wavefront", ray_types=RAY_TYPES)
@@ -301,6 +344,24 @@ class Scene:
         res = build_structure(tri, builder, depth, config=config)
         return cls(res.bvh, res.depth, builder=res.builder, config=res.config)
 
+    def refit(self, triangles) -> "Scene":
+        """Move the scene's geometry in place, keeping its topology: the
+        same soup (same count, same order) with moved vertices.  Re-sweeps
+        the boxes (``core/build/refit.refit``), bumps :attr:`version` so
+        engines re-prepare once, and returns ``self``."""
+        tri = _as_triangles(triangles, self.device)
+        _validate_finite(tri, "Scene.refit")
+        self.bvh = refit_bvh(self.bvh, tri, self.config)
+        self.version += 1
+        return self
+
+    def stats(self, rays: Ray | None = None, probes: int = 256) -> TreeStats:
+        """Tree quality: SAH cost plus mean datapath jobs per ray measured
+        on ``rays`` (or a deterministic probe batch) on the scene's
+        device."""
+        return tree_stats(self.bvh, self.builder, rays=rays, probes=probes,
+                          config=self.config)
+
     @property
     def device(self) -> torch.device:
         return self.bvh.node_lo.device
@@ -429,9 +490,17 @@ class PointCloudScene:
         return cls(res.bvh, res.depth, builder=res.builder, config=res.config)
 
     def refit(self, points) -> "PointCloudScene":
-        raise NotImplementedError(
-            "PointCloudScene.refit is not ported yet; rebuild with "
-            "PointCloudScene.from_points")
+        """Move the cloud's points in place, keeping its topology (same
+        count, same order): the cull-free refit, then the index rebuilt so
+        its norms are re-derived, and :attr:`version` bumped so engines
+        re-prepare once.  Returns ``self``."""
+        points = as_f32(points, self.device)
+        _validate_points_finite(points, "PointCloudScene.refit")
+        self.bvh = refit_points(self.bvh, points, self.config)
+        self.index = VectorIndex(self.bvh.triangles.a, device=self.device)
+        self.version += 1
+        self._root_vol = None
+        return self
 
     @property
     def device(self) -> torch.device:
@@ -468,9 +537,15 @@ class QueryEngine:
     ``backend="auto"`` picks the kernel backend for data on a CUDA device
     and the plain one on the CPU (see the ``resolve_*`` methods).
     ``chunk_size`` (engine-wide or per call) streams a batch through
-    fixed-size blocks; ``shard`` must be 1 (or None) until sharding is
-    ported.  Zero-row batches return a typed empty result without
-    launching anything.
+    fixed-size blocks; ``shard="auto" | int`` resolves through
+    :func:`~repro_torch.core.dispatch.resolve_shards` on the data's device
+    (one shard on one card).  Each (query, backend, static parameters,
+    plan, row signature) key counts one miss at its first use and a hit
+    after (:meth:`cache_info`), and each backend's prepared context is
+    built once per scene or cloud version (:attr:`prepares` counts those
+    runs).
+    Zero-row batches return a typed empty result without launching
+    anything.
     """
 
     #: below this cloud size "auto" keeps neighbour queries on the brute
@@ -482,20 +557,31 @@ class QueryEngine:
     #: stays under this
     AUTO_TREE_MAX_SELECTIVITY = 0.05
 
+    #: the query methods a serving layer coalesces (one bucket space each)
+    SERVABLE_METHODS = ("trace", "nearest", "within", "count_within", "scores")
+
     def __init__(self, scene: Scene | None = None,
                  index: VectorIndex | None = None,
                  cloud: PointCloudScene | None = None, *,
                  backend: str = "auto", pad_multiple: int | None = None,
-                 shard=None, chunk_size: int | None = None):
+                 shard: str | int | None = "auto", chunk_size: int | None = None):
         self.scene = scene
         self._index = index
         self.cloud = cloud
         self.default_backend = backend
-        check_shards(shard)
+        if shard not in (None, "auto"):
+            check_count("shard", shard)
+        self.default_shard = shard
         self.default_chunk_size = check_count("chunk_size", chunk_size)
         self.pad_multiple = (DEFAULT_PAD_MULTIPLE if pad_multiple is None
                              else max(1, int(pad_multiple)))
+        self._seen: dict = {}  # key -> the data version it was last built for
         self._ctx: dict = {}  # (kind, backend, version) -> prepared ctx
+        self._hits = 0
+        self._misses = 0
+        #: how many times a backend's prepare hook ran (once per backend
+        #: and scene / cloud version)
+        self.prepares = 0
 
     @property
     def index(self) -> VectorIndex | None:
@@ -504,18 +590,75 @@ class QueryEngine:
             return self.cloud.index
         return self._index
 
+    def _index_version(self) -> int:
+        """Version of the index data: a cloud refit swaps the brute path's
+        database, so run functions built over it must re-key."""
+        if self._index is None and self.cloud is not None:
+            return self.cloud.version
+        return 0
+
+    # -- cache -------------------------------------------------------------
+
+    def cache_info(self) -> CacheInfo:
+        return CacheInfo(self._hits, self._misses, len(self._seen))
+
+    def cache_clear(self) -> None:
+        """Forget the seen keys and drop the prepared contexts."""
+        self._seen.clear()
+        self._ctx.clear()
+        self._hits = self._misses = 0
+
+    def _cached_run(self, key, build, version: int = 0):
+        """``build()``, counted as a hit if ``key`` was built before for
+        data ``version`` and as a miss otherwise.  A run function here is
+        a closure with no compile behind it, so it is built anew on every
+        call: one kept would hold its index's tensors after a cloud
+        refit.  A key keeps only its newest version, so an animated cloud
+        adds no entry per frame."""
+        if self._seen.get(key) == version:
+            self._hits += 1
+        else:
+            self._misses += 1
+            self._seen[key] = version
+        return build()
+
+    def _prepared(self, kind: str, name: str, owner, prepare):
+        """``prepare(owner)(owner.bvh)``, once per (backend, version)."""
+        if prepare is None:
+            return owner.bvh
+        key = (kind, name, owner.version)
+        if key not in self._ctx:
+            self._ctx = {k: v for k, v in self._ctx.items() if k[:2] != key[:2]}
+            fn = self._cached_run(("prepare", name), lambda: prepare(owner))
+            self._ctx[key] = fn(owner.bvh)
+            self.prepares += 1
+        return self._ctx[key]
+
     # -- backend resolution ----------------------------------------------
 
+    def _need_scene(self) -> Scene:
+        if self.scene is None:
+            raise ValueError("QueryEngine has no Scene; construct with "
+                             "QueryEngine(scene=...) or Scene.engine()")
+        return self.scene
+
+    def _need_index(self) -> VectorIndex:
+        if self.index is None:
+            raise ValueError("QueryEngine has no VectorIndex; construct with "
+                             "QueryEngine(index=...) or VectorIndex.engine()")
+        return self.index
+
     def resolve_trace_backend(self) -> str:
-        return "cuda" if self.scene.device.type == "cuda" else "wavefront"
+        """The fused kernel for a scene on a CUDA device, the wavefront
+        engine on the CPU.  Unlike the reference's, "auto" never picks the
+        per-ray oracle for a tiny batch: its loop runs on the host here,
+        one ray at a time, and never beats a batch engine."""
+        return "cuda" if self._need_scene().device.type == "cuda" else "wavefront"
 
     def resolve_distance_backend(self) -> str:
         """The distance kernel for an index on a CUDA device, the plain
         matmul form on the CPU."""
-        if self.index is None:
-            raise ValueError("QueryEngine has no VectorIndex; construct with "
-                             "QueryEngine(index=...) or VectorIndex.engine()")
-        return "cuda" if self.index.device.type == "cuda" else "mxu"
+        return "cuda" if self._need_index().device.type == "cuda" else "mxu"
 
     def _tree_backend(self) -> str:
         # The card has no counterpart of the TPU's VMEM budget
@@ -548,20 +691,83 @@ class QueryEngine:
             return self.resolve_distance_backend()
         return self._tree_backend()
 
-    def _prepared(self, kind: str, name: str, owner, prepare):
-        """``prepare(owner)(owner.bvh)``, once per (backend, version)."""
-        if prepare is None:
-            return owner.bvh
-        key = (kind, name, owner.version)
-        if key not in self._ctx:
-            self._ctx = {k: v for k, v in self._ctx.items() if k[:2] != key[:2]}
-            self._ctx[key] = prepare(owner)(owner.bvh)
-        return self._ctx[key]
+    # -- execution planning ------------------------------------------------
 
-    def _chunk(self, shard, chunk_size):
-        check_shards(shard)
+    def _resolve_shards(self, shard, n: int, device: torch.device) -> int:
+        return resolve_shards(self.default_shard if shard is None else shard,
+                              n, device)
+
+    def _plan(self, n: int, shards: int, chunk_size,
+              lane_multiple: int | None = None) -> ExecPlan:
+        if chunk_size is None:
+            chunk_size = self.default_chunk_size
+        return make_plan(n, pad_multiple=self.pad_multiple, shards=shards,
+                         chunk_size=chunk_size, lane_multiple=lane_multiple)
+
+    def _method_lane_multiple(self, method: str, backend: str | None, *,
+                              metric: str = "euclidean", k: int | None = None,
+                              radius: float | None = None) -> int | None:
+        """The row multiple a ``method`` query's backend declares (None:
+        only the pad multiple applies), resolving "auto" as the query
+        would."""
+        name = backend or self.default_backend
+        if method == "trace":
+            if name == "auto":
+                name = self.resolve_trace_backend()
+            if name not in _TRACE_BACKENDS:
+                raise ValueError(f"unknown trace backend {name!r} "
+                                 f"(registered: {trace_backends()})")
+            return _TRACE_BACKENDS[name][2]
+        if method in ("nearest", "within", "count_within", "scores"):
+            if name == "auto":
+                if method == "scores" or (method != "nearest" and radius is None):
+                    # scores is brute-only; a radius query asked about
+                    # without its radius cannot be routed by selectivity
+                    name = self.resolve_distance_backend()
+                else:
+                    name = self.resolve_neighbor_backend(method, metric, k=k,
+                                                         radius=radius)
+            if name in _NEIGHBOR_BACKENDS:
+                return _NEIGHBOR_BACKENDS[name][1]
+            if name in _DISTANCE_BACKENDS:
+                return None
+            raise ValueError(
+                f"unknown distance/neighbor backend {name!r} (registered: "
+                f"{distance_backends() + neighbor_backends()})")
+        raise ValueError(f"unknown query method {method!r} "
+                         f"(servable: {self.SERVABLE_METHODS})")
+
+    def _method_device(self, method: str) -> torch.device:
+        if method == "trace":
+            return self._need_scene().device
+        return (self.cloud.device if self.cloud is not None
+                else self._need_index().device)
+
+    def batch_multiple(self, method: str = "trace", backend: str | None = None, *,
+                       ray_type: str = "closest", metric: str = "euclidean",
+                       k: int | None = None, radius: float | None = None) -> int:
+        """The row multiple ``method`` queries are padded to:
+        ``max(pad_multiple, the backend's row multiple)``.  A serving
+        coalescer sizes its batches by it.  ``ray_type`` is accepted for
+        the reference's signature; every trace backend pads alike."""
+        lane = self._method_lane_multiple(method, backend, metric=metric, k=k,
+                                          radius=radius)
+        return max(self.pad_multiple, lane or 1)
+
+    def plan_for(self, method: str, n: int, *, backend: str | None = None,
+                 ray_type: str = "closest", metric: str = "euclidean",
+                 k: int | None = None, radius: float | None = None, shard=None,
+                 chunk_size: int | None = None) -> ExecPlan:
+        """The :class:`~repro_torch.core.dispatch.ExecPlan` an ``n``-row
+        ``method`` query would run under, without running anything: the
+        plan the query path itself builds."""
+        if n < 1:
+            raise ValueError(f"plan_for needs n >= 1, got {n}")
+        shards = self._resolve_shards(shard, n, self._method_device(method))
         chunk_size = check_count("chunk_size", chunk_size)
-        return self.default_chunk_size if chunk_size is None else chunk_size
+        lane = self._method_lane_multiple(method, backend, metric=metric, k=k,
+                                          radius=radius)
+        return self._plan(n, shards, chunk_size, lane_multiple=lane)
 
     # -- traversal queries -------------------------------------------------
 
@@ -571,15 +777,16 @@ class QueryEngine:
               chunk_size: int | None = None) -> TraceResult:
         """Traverse a ray batch: ``ray_type`` is ``"closest"`` | ``"any"`` |
         ``"shadow"``.  Results are bit-identical whatever ``chunk_size``."""
-        if self.scene is None:
-            raise ValueError("QueryEngine has no Scene; construct with "
-                             "QueryEngine(scene=...) or Scene.engine()")
+        scene = self._need_scene()
         if ray_type not in RAY_TYPES:
             raise ValueError(f"ray_type must be one of {RAY_TYPES}, got {ray_type!r}")
         if t_min is None:
             t_min = default_t_min(ray_type)
         t_min = float(t_min)
-        chunk_size = self._chunk(shard, chunk_size)
+        n = rays.origin.shape[0]
+        dev = scene.device
+        shards = self._resolve_shards(shard, n, dev)
+        chunk_size = check_count("chunk_size", chunk_size)
         name = backend or self.default_backend
         if name == "auto":
             name = self.resolve_trace_backend()
@@ -590,11 +797,8 @@ class QueryEngine:
         if ray_type not in supported:
             raise ValueError(f"backend {name!r} supports ray types {supported}, "
                              f"got {ray_type!r}")
-        if rays.origin.device != self.scene.device:
-            raise ValueError(f"rays on {rays.origin.device}, scene on "
-                             f"{self.scene.device}")
-        n = rays.origin.shape[0]
-        dev = self.scene.device
+        if rays.origin.device != dev:
+            raise ValueError(f"rays on {rays.origin.device}, scene on {dev}")
         if n == 0:  # empty guard: typed empty result, nothing launched
             z = torch.zeros((0,), dtype=torch.int32, device=dev)
             return TraceResult(t=torch.zeros((0,), device=dev), tri_index=z,
@@ -603,26 +807,32 @@ class QueryEngine:
                                rounds=torch.zeros((), dtype=torch.int32,
                                                   device=dev))
 
-        plan = make_plan(n, pad_multiple=self.pad_multiple,
-                         chunk_size=chunk_size, lane_multiple=lane_multiple)
-        run = build(self.scene, ray_type, t_min, max_rounds)
-        ctx = self._prepared("trace", name, self.scene, prepare)
+        plan = self._plan(n, shards, chunk_size, lane_multiple=lane_multiple)
+        key = (("trace", name, ray_type, t_min, max_rounds) + plan.key
+               + _elem_key(rays))
+        run = self._cached_run(key, lambda: build(scene, ray_type, t_min, max_rounds))
+        ctx = self._prepared("trace", name, scene, prepare)
         outs = [run(ctx, block) for block in split_blocks(rays, plan)]
         rounds = torch.stack([o.rounds for o in outs]).max()
         rows = concat_rows([o[:-1] for o in outs], n)
         return TraceResult(*rows, rounds=rounds)
 
+    def occluded(self, rays: Ray, *, t_min: float = SHADOW_T_MIN,
+                 backend: str | None = None, shard=None,
+                 chunk_size: int | None = None) -> torch.Tensor:
+        """Is anything hit within each ray's extent?  The ``hit`` of a
+        shadow trace."""
+        return self.trace(rays, "shadow", t_min=t_min, backend=backend,
+                          shard=shard, chunk_size=chunk_size).hit
+
     # -- distance queries --------------------------------------------------
 
-    def _distance_fn(self, queries, metric: str, backend: str | None,
-                     epilogue, empty, shard=None,
+    def _distance_fn(self, kind: str, queries, metric: str, backend: str | None,
+                     statics: tuple, epilogue, empty, shard=None,
                      chunk_size: int | None = None):
         """Brute-force scores per block of queries, each block's scores
         reduced by ``epilogue`` to a tuple of per-row results."""
-        index = self.index
-        if index is None:
-            raise ValueError("QueryEngine has no VectorIndex; construct with "
-                             "QueryEngine(index=...) or VectorIndex.engine()")
+        index = self._need_index()
         name = backend or self.default_backend
         if name == "auto":
             name = self.resolve_distance_backend()
@@ -630,14 +840,20 @@ class QueryEngine:
             raise ValueError(f"unknown distance backend {name!r} "
                              f"(registered: {distance_backends()})")
         q = _on_device(queries, index.device, "queries")
-        chunk_size = self._chunk(shard, chunk_size)
         n = q.shape[0]
+        shards = self._resolve_shards(shard, n, index.device)
+        chunk_size = check_count("chunk_size", chunk_size)
         if n == 0:  # empty guard: typed empty result, nothing launched
             return empty()
-        plan = make_plan(n, pad_multiple=self.pad_multiple, chunk_size=chunk_size)
-        score_fn = _DISTANCE_BACKENDS[name](index, metric)
-        return concat_rows([epilogue(score_fn(block))
-                            for (block,) in split_blocks((q,), plan)], n)
+        plan = self._plan(n, shards, chunk_size)
+        key = (kind, name, metric) + statics + plan.key + _elem_key((q,))
+
+        def build():
+            score_fn = _DISTANCE_BACKENDS[name](index, metric)
+            return lambda block: epilogue(score_fn(block))
+
+        run = self._cached_run(key, build, self._index_version())
+        return concat_rows([run(block) for (block,) in split_blocks((q,), plan)], n)
 
     def _tree_neighbor(self, kind: str, queries, k: int, radius, name: str,
                        shard=None, chunk_size: int | None = None) -> NeighborRecord:
@@ -647,23 +863,25 @@ class QueryEngine:
             raise ValueError(
                 f"backend {name!r} needs a PointCloudScene; construct with "
                 "QueryEngine(cloud=...) or PointCloudScene.engine()")
+        cloud = self.cloud
         mode = "nearest" if kind == "nearest" else "within"
         build, lane_multiple, prepare = _NEIGHBOR_BACKENDS[name]
-        dev = self.cloud.device
+        dev = cloud.device
         q = _on_device(queries, dev, "queries")
         if q.ndim != 2 or q.shape[-1] != 3:
             raise ValueError(f"tree-backed {kind} expects (M, 3) queries, got "
                              f"{tuple(q.shape)}")
-        kk = max(1, min(int(k), self.cloud.size))  # k > N pads below
-        chunk_size = self._chunk(shard, chunk_size)
+        kk = max(1, min(int(k), cloud.size))  # k > N pads below
         n = q.shape[0]
+        shards = self._resolve_shards(shard, n, dev)
+        chunk_size = check_count("chunk_size", chunk_size)
         if n == 0:  # empty guard: typed empty result, nothing launched
             return empty_neighbors(k, dev)
         rays = point_queries(q, radius, device=dev)
-        plan = make_plan(n, pad_multiple=self.pad_multiple,
-                         chunk_size=chunk_size, lane_multiple=lane_multiple)
-        run = build(self.cloud, mode, kk)
-        ctx = self._prepared("neighbor", name, self.cloud, prepare)
+        plan = self._plan(n, shards, chunk_size, lane_multiple=lane_multiple)
+        key = ("neighbor", name, mode, kk) + plan.key + _elem_key(rays)
+        run = self._cached_run(key, lambda: build(cloud, mode, kk))
+        ctx = self._prepared("neighbor", name, cloud, prepare)
         outs = [run(ctx, block) for block in split_blocks(rays, plan)]
         rounds = torch.stack([o.rounds for o in outs]).max()
         rec = NeighborRecord(*concat_rows([o[:-1] for o in outs], n), rounds=rounds)
@@ -739,8 +957,8 @@ class QueryEngine:
             return scores, idx, idx >= 0
 
         return NearestResult(*self._distance_fn(
-            queries, metric, name, topk, self._empty(k), shard=shard,
-            chunk_size=chunk_size))
+            "nearest", queries, metric, name, (k,), topk, self._empty(k),
+            shard=shard, chunk_size=chunk_size))
 
     def within(self, queries, radius: float, k: int, metric: str = "euclidean",
                *, backend: str | None = None, shard=None,
@@ -758,7 +976,7 @@ class QueryEngine:
                                       shard=shard, chunk_size=chunk_size)
             return WithinResult(rec.dist_sq, rec.index, rec.valid)
         return WithinResult(*self._distance_fn(
-            queries, metric, name,
+            "within", queries, metric, name, (radius, k),
             lambda s: select_within(s, radius, k, metric), self._empty(k),
             shard=shard, chunk_size=chunk_size))
 
@@ -776,7 +994,7 @@ class QueryEngine:
             return self._tree_neighbor("count_within", queries, 1, radius, name,
                                        shard=shard, chunk_size=chunk_size).count
         return self._distance_fn(
-            queries, metric, name,
+            "count_within", queries, metric, name, (radius,),
             lambda s: (count_within_scores(s, radius, metric),),
             lambda: (torch.zeros((0,), dtype=torch.int32,
                                  device=self.index.device),),
@@ -789,7 +1007,7 @@ class QueryEngine:
         if metric not in METRICS:
             raise ValueError(f"unknown metric: {metric}")
         return self._distance_fn(
-            queries, metric, backend, lambda s: (s,),
+            "scores", queries, metric, backend, (), lambda s: (s,),
             lambda: (torch.zeros((0, self.index.size), dtype=torch.float32,
                                  device=self.index.device),),
             shard=shard, chunk_size=chunk_size)[0]
@@ -802,4 +1020,6 @@ class QueryEngine:
 
     def __repr__(self):
         return (f"QueryEngine(scene={self.scene!r}, index={self.index!r}, "
-                f"cloud={self.cloud!r}, backend={self.default_backend!r})")
+                f"cloud={self.cloud!r}, backend={self.default_backend!r}, "
+                f"pad_multiple={self.pad_multiple}, shard={self.default_shard!r}, "
+                f"chunk_size={self.default_chunk_size}, cache={self.cache_info()})")

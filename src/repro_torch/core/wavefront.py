@@ -147,3 +147,9 @@ def trace_wavefront(bvh: BVH4, rays: Ray, depth: int, ray_type: str = "closest",
                            stack_overflow=overflow,
                            rounds=torch.tensor(rounds, dtype=torch.int32,
                                                device=dev))
+
+
+def occlusion_test(bvh: BVH4, rays: Ray, depth: int,
+                   t_min: float = SHADOW_T_MIN) -> torch.Tensor:
+    """Is anything hit within each ray's extent (the shadow query)?"""
+    return trace_wavefront(bvh, rays, depth, ray_type="shadow", t_min=t_min).hit

@@ -284,6 +284,80 @@ def test_engine_kernel_backends_match_plain_backends(cuda):
     assert torch.equal(counts, ceng.count_within(qp, 0.05, backend="tree_wavefront"))
 
 
+def _animated_soup(seed, n_clusters=40, per=100, frames=3):
+    """A clustered soup and its frames of rigid per-cluster motion."""
+    rng = np.random.default_rng(seed)
+    centres = rng.uniform(-4, 4, (n_clusters, 1, 3))
+    tris = (np.repeat(centres, per, axis=0)
+            + rng.normal(scale=0.06, size=(n_clusters * per, 3, 3))).astype(np.float32)
+    vel = np.repeat(rng.normal(scale=0.1, size=(n_clusters, 1, 3)), per, axis=0)
+    return tris, [(tris + f * vel).astype(np.float32) for f in range(1, frames + 1)]
+
+
+def test_refit_then_cuda_trace_bit_equal_to_wavefront(cuda):
+    tris, frames = _animated_soup(11)
+    scene = Scene.from_triangles(tris, device=cuda)
+    engine = scene.engine()
+    assert engine.resolve_trace_backend() == "cuda"
+    rng = np.random.default_rng(12)
+    org = rng.uniform(-6, 6, (3000, 3)).astype(np.float32)
+    rays = make_ray(org, (tris.mean(1)[rng.integers(0, len(tris), 3000)] - org), device=cuda)
+    for moved in frames:
+        scene.refit(moved)
+        nvcc.reset_launches()
+        for ray_type in RAY_TYPES:
+            got = engine.trace(rays, ray_type)
+            want = trace_wavefront(scene.bvh, rays, scene.depth, ray_type=ray_type)
+            for f in want._fields:
+                assert _bits_equal(getattr(got, f), getattr(want, f)), (ray_type, f)
+        assert nvcc.launch_counts()["traverse"] == len(RAY_TYPES)
+        shadow = trace_wavefront(scene.bvh, rays, scene.depth, ray_type="shadow")
+        assert torch.equal(engine.occluded(rays), shadow.hit)
+
+
+def test_refit_repacks_exactly_once_per_version(cuda, monkeypatch):
+    from repro_torch.kernels import traverse
+    tris, frames = _animated_soup(13)
+    scene = Scene.from_triangles(tris, device=cuda)
+    engine = scene.engine(chunk_size=1024)
+    rays = make_ray(np.zeros((3000, 3), np.float32) + [0, 0, -9],
+                    np.random.default_rng(14).normal(size=(3000, 3)) * [1, 1, 0] + [0, 0, 1],
+                    device=cuda)
+    packs = []
+    real = traverse.pack_bvh
+    monkeypatch.setattr(traverse, "pack_bvh", lambda *a: packs.append(1) or real(*a))
+    for f, moved in enumerate([tris] + frames):
+        if f:
+            scene.refit(moved)
+        for _ in range(2):  # three chunks each, twice
+            engine.trace(rays)
+        assert len(packs) == engine.prepares == f + 1
+    info = engine.cache_info()
+    assert (info.misses, info.entries) == (2, 2)  # the trace key and the prepare key
+
+
+def test_cloud_refit_then_tree_cuda_bit_equal_to_tree_wavefront(cuda):
+    pts, cloud = _cloud(cuda)
+    eng = cloud.engine()
+    rng = np.random.default_rng(15)
+    for step in range(2):
+        pts = (pts + rng.normal(scale=0.005, size=pts.shape)).astype(np.float32)
+        cloud.refit(pts)
+        assert torch.equal(cloud.points, torch.as_tensor(pts, device=cuda))
+        want_sq = norms_plain(cloud.index.database)[0]
+        _assert_scores_close(cloud.index.sq_norms, want_sq, want_sq.abs().double())
+        q = torch.as_tensor(pts[::3], device=cuda)
+        nvcc.reset_launches()
+        for kind, radius in (("nearest", None), ("within", 0.05)):
+            got = eng.neighbor_search(q, 16, radius, mode=kind)
+            want = eng.neighbor_search(q, 16, radius, mode=kind, backend="tree_wavefront")
+            for f in want._fields:
+                assert _bits_equal(getattr(got, f), getattr(want, f)), (step, kind, f)
+            if kind == "nearest":  # auto routes nearest to the same kernel
+                assert torch.equal(eng.nearest(q, 16).indices, got.index)
+        assert nvcc.launch_counts()["neighbor"] == 3
+
+
 def _stream_operands(rng, ops, reset_p=0.3):
     """Packed (48, T*128) operands for per-beat opcodes ``ops``: normal
     values; k rows of {0, 1, 2, 0.5} and sign rows of {0, 1}; live-lane

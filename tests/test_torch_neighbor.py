@@ -370,8 +370,10 @@ def test_tree_edges(cloud_pair):
     assert rec.count.shape == (0,) and int(rec.rounds) == 0
     with pytest.raises(ValueError, match=r"\(M, 3\)"):
         eng.nearest(np.zeros((2, 4), np.float32), 2, backend="tree_wavefront")
-    with pytest.raises(NotImplementedError):
-        cloud.refit(pts)
+    # refit keeps the topology, as the reference's does: another point
+    # count raises (tests/test_torch_refit.py holds the refit itself)
+    with pytest.raises(ValueError, match="refit_points needs"):
+        PointCloudScene.from_points(pts[:7], device="cpu").refit(pts[:6])
 
 
 def test_point_cloud_round_trip(cloud_pair):

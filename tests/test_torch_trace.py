@@ -30,7 +30,8 @@ from repro.core.build import build as jbuild
 from repro.core.wavefront import trace_wavefront as jtrace_wavefront
 from repro.kernels.traverse import pack_bvh as jpack_bvh
 from repro.kernels.traverse import traverse_packed as jtraverse_packed
-from repro_torch.api import RAY_TYPES, Scene, TraceResult, make_ray, trace_backends
+from repro_torch.api import (RAY_TYPES, Scene, TraceResult, make_ray,
+                             trace_backend_ray_types, trace_backends)
 from repro_torch.convert import bvh_from_numpy, rays_from_numpy
 from repro_torch.core.dispatch import (check_count, concat_rows, make_plan,
                                        pad_leading, slice_rows, split_blocks)
@@ -207,7 +208,9 @@ def test_engine_reproduces_goldens(scene, ray_type):
     want = TraceResult(**{f: data[f"{stem}__{f}"] for f in TraceResult._fields})
     got = engine.trace(rays, ray_type)
     _assert_record(_np(got), want, f"{scene}/{ray_type}", data["tris"], rays)
-    for backend in trace_backends():  # every backend, whole and chunked
+    # every backend that takes the ray type, whole and chunked
+    for backend in (b for b in trace_backends()
+                    if ray_type in trace_backend_ray_types(b)):
         for chunk in (None, 16):
             _assert_same(engine.trace(rays, ray_type, backend=backend,
                                       chunk_size=chunk), got,
@@ -223,10 +226,11 @@ def test_auto_backend_and_engine_knobs():
     whole = scene.engine().trace(rays)
     _assert_same(engine.trace(rays), whole, "engine chunk_size=16")
     _assert_same(engine.trace(rays, chunk_size=7), whole, "per-call chunk")
-    with pytest.raises(NotImplementedError):
-        scene.engine(shard=2)
-    with pytest.raises(NotImplementedError):
-        engine.trace(rays, shard="auto")
+    # shard resolves as the reference's does: "auto" is one shard on the
+    # CPU, and a count above the device count raises
+    _assert_same(engine.trace(rays, shard="auto"), whole, "shard='auto'")
+    with pytest.raises(ValueError):
+        scene.engine(shard=2).trace(rays)
     with pytest.raises(ValueError):
         engine.trace(rays, chunk_size=0)
     with pytest.raises(ValueError):
@@ -240,7 +244,8 @@ def test_empty_batch_gives_typed_empty_result():
     engine = Scene.from_triangles(data["tris"], device="cpu").engine()
     empty = make_ray(np.zeros((0, 3)), np.zeros((0, 3)), device="cpu")
     for backend in trace_backends():
-        res = engine.trace(empty, "shadow", backend=backend)
+        ray_type = "shadow" if "shadow" in trace_backend_ray_types(backend) else "closest"
+        res = engine.trace(empty, ray_type, backend=backend)
         assert isinstance(res, TraceResult)
         assert all(x.shape == (0,) for x in res[:-1]) and int(res.rounds) == 0
         assert (res.t.dtype, res.tri_index.dtype, res.hit.dtype) == \
