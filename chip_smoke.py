@@ -7,14 +7,16 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. build the CUDA kernels from ``src/repro_torch/csrc`` (nvcc, sm_90a),
    print ptxas's registers, spills and stack frame (for each neighbour
-   kernel variant) and the card's name and power limit;
+   kernel variant and each traversal kernel variant) and the card's name
+   and power limit;
 2. OpQuadbox kernel vs its plain version on 1,048,576 jobs (with
    ``dir = +-0.0`` and 0 * inf slabs): every field bit-equal;
 3. OpTriangle kernel vs its plain version on 1,048,576 jobs: bit-equal;
 4. the golden scenes ``tests/golden/{tetra,sheet,cluster}.npz`` through
-   ``Scene.from_triangles(...).engine().trace(...)`` on the cuda backend
-   for closest / any / shadow rays: every field exact, ``t`` within
-   ``GOLDEN_T_ULPS``;
+   ``Scene.from_triangles(..., builder, config).engine().trace(...)`` on
+   the cuda backend, all 18 entries of each (BVH4 fp32, BVH8 fp32, BVH4
+   bf16-compressed x LBVH, SAH x closest / any / shadow): every field
+   exact, ``t`` within ``GOLDEN_T_ULPS``;
 5. the main path at full size: a 1,048,576-triangle clustered soup built
    by the port's LBVH on the card, 1024 x 1024 pinhole primary rays
    (closest), the primary rays against four box-shaped lights that are
@@ -80,6 +82,29 @@ Phases (any failure exits non-zero and prints no result line):
     ``dist_sq`` bit-equal to a rebuild's.  Timed: refit against rebuild,
     the first trace after a refit against a steady one, the cloud refit
     against ``from_points``;
+11. the datapath twins on clustered-1M: ``Scene.from_triangles(..., builder,
+    config)`` for LBVH and SAH at BVH4 fp32, BVH8 fp32 and BVH4
+    bf16-compressed, and LBVH at BVH4 stack 16 bf16 (a stack that
+    overflows) and BVH4 stack 100 (a stack past the kernel's local array);
+    each traces the 2^20 camera rays closest and any and their shadow
+    rays through ``backend="cuda"``.  Gates: every trace bit-equal to
+    ``trace_wavefront`` on every ray and field; closest ``hit`` / ``t``
+    bit-equal to the same builder's BVH4 fp32 twin where neither
+    overflowed (a differing ``tri_index`` only where both triangles give
+    the same ``t``); the codec twins' job counters at least those of the
+    exact twin of the same builder, arity and stack, traced under that
+    twin's own config, on every ray that hits nothing and overflows in
+    neither (a hit ray may visit fewer nodes: the widened boxes reorder its
+    children, so it prunes in another order; those rays are counted and
+    printed); ``Scene.refit`` with the
+    build's triangles bit-equal to the build under BVH8 and
+    bf16-compressed; a soup with +-0.0 vertices built by both builders
+    under every golden config on the card bit-equal to its build on the
+    CPU, and its refit to its build (the signed-zero order of the box
+    reductions).  Printed per config: build, trace, kernel and plain ms,
+    jobs per ray, rounds, overflowed rays, packed and analytic node bytes,
+    the kernel's bound on both (distinct bytes against job-counted
+    operations) and the sectors its jobs gather;
 
 then one JSON ``kernels`` line (launches on each kernel's path, times,
 errors, bounds, library times) and the ``{"ok": true, "device": ...}``
@@ -120,6 +145,8 @@ L2_SPAN = 4
 #: round-every-op value (measured on the CPU path: 2 ulps on tetra and
 #: sheet, 0 on cluster).  Every other field is exact.
 GOLDEN_T_ULPS = 2
+#: the datapath twins the goldens pin (``DatapathConfig.tag``)
+GOLDEN_CONFIGS = ("bvh4_s64_fp32_fp32", "bvh8_s64_fp32_fp32", "bvh4_s64_bf16_compressed")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bandwidth, f32 (non-tensor) rate
 # and the dense TF32 tensor-core rate (the distance kernel's 3xTF32)
@@ -131,9 +158,10 @@ RAYBOX_BYTES, RAYBOX_OPS = (9 + 24 + 12) * 4, 4 * (6 + 6 + 6 + 1) + 5
 #: OpTriangle reads org, shear, k (i32) and three vertices, 6 rows of 3
 #: words, and writes t_num, t_denom and hit
 RAYTRI_BYTES, RAYTRI_OPS = (18 + 3) * 4, 9 + 9 + 6 + 6 + 3 + 3 + 4 + 5
-#: fused kernel: a ray reads 16 operand floats and writes 5 words; a box
-#: job reads 4 child boxes; a triangle job reads a leaf slot and 9 floats
-TRAV_RAY_BYTES, TRAV_QB_BYTES, TRAV_TRI_BYTES = 84, 96, 40
+#: fused kernel: a ray reads 16 operand floats and writes 5 words; a
+#: triangle job gathers a leaf slot and 9 triangle rows, one 32 B sector
+#: each (the gathered-sector metric, not the bound)
+TRAV_RAY_BYTES, TRAV_TRI_SECTORS, SECTOR_BYTES = 84, 10, 32
 #: f32 ops of a triangle job inside traversal: the unit, the divide, and
 #: the 4 compares of the commit
 TRAV_TRI_OPS = RAYTRI_OPS + 1 + 4
@@ -177,6 +205,14 @@ STREAM_OPS = (RAYTRI_OPS, RAYBOX_OPS, 48, 32)
 FRAMES, ANIM_SEED, ANIM_SIGMA = 4, 20240912, 0.1
 CLOUD_JITTER_SEED, CLOUD_JITTER = 20240913, 0.005
 ORACLE_RAYS = 256
+# phase 11: the datapath twins on clustered-1M, (builder, DatapathConfig.tag)
+TWIN_CONFIGS = tuple((b, t) for b in ("lbvh", "sah") for t in GOLDEN_CONFIGS) + (
+    ("lbvh", "bvh4_s16_bf16_fp32"),  # a stack that overflows
+    ("lbvh", "bvh4_s100_fp32_fp32"))  # a stack deeper than the local array
+#: f32 ops of one box-test job at arity A: A boxes x 19, the sort's comparators
+SORT_COMPARATORS = {4: 5, 8: 19}
+#: a soup whose vertex coordinates are +-0.0 at random (30%), the rest N(0, 1)
+SIGNED_ZERO_SEED, SIGNED_ZERO_TRIS, SIGNED_ZERO_SHARE = SEED + 7, 4096, 0.3
 
 
 def fail(msg: str) -> None:
@@ -207,6 +243,37 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def traverse_bound(packed, n_rays: int, sum_qb: float, sum_tri: float, arity: int,
+                   node_bytes: float | None = None) -> tuple[float, str]:
+    """The fused kernel's bound: its distinct bytes (each ray's operands
+    read and record written once, the packed tree -- node rows, leaf
+    table, triangles -- read once) against its job-counted operations.
+    ``node_bytes`` stands in for the packed node rows' bytes (a codec's
+    analytic size)."""
+    rows = sum(t.numel() * t.element_size() for t in (packed.nlo, packed.nhi))
+    rest = sum(t.numel() * t.element_size() for t in (packed.leaf, packed.tris))
+    n_bytes = n_rays * TRAV_RAY_BYTES + (rows if node_bytes is None else node_bytes) + rest
+    ops = sum_qb * (arity * 19 + SORT_COMPARATORS[arity]) + sum_tri * TRAV_TRI_OPS
+    return bound_ms(n_bytes, ops)
+
+
+def traverse_gathered(packed, depth: int, n_rays: int, sum_qb: float, sum_tri: float,
+                      arity: int) -> tuple[float, float]:
+    """32 B sectors a box job gathers (the mean over the tree's internal
+    nodes: each of the 6 node rows holds a node's ``arity`` child bounds
+    contiguously, one sector or two where they cross a boundary), and the
+    bytes of every job's sectors plus the rays' own: traffic before L1 / L2
+    serve any of it, printed beside the bound and never as it."""
+    from repro_torch.core.bvh import level_offset
+    e = packed.nlo.element_size()
+    start = (arity * np.arange(level_offset(depth, arity), dtype=np.int64) + 1) * e
+    last = start + arity * e - 1
+    box_sectors = 6.0 * float((last // SECTOR_BYTES - start // SECTOR_BYTES + 1).mean())
+    n_bytes = n_rays * TRAV_RAY_BYTES + SECTOR_BYTES * (
+        sum_qb * box_sectors + sum_tri * TRAV_TRI_SECTORS)
+    return box_sectors, n_bytes
 
 
 def distance_bounds(m: int, n: int, d: int, euclidean: bool):
@@ -266,6 +333,30 @@ def neighbor_ptxas(log: str) -> list[tuple[str, str, str]]:
             label = None
     if not out:
         fail("ptxas printed no neighbour kernel variant")
+    return out
+
+
+def traverse_ptxas(log: str) -> list[tuple[str, str]]:
+    """ptxas's register / spill lines for each instantiation of the
+    traversal kernel, labelled by arity, node-box type and stack home;
+    fails unless all 8 variants are there, each with its registers."""
+    import re
+    out, label, with_regs = [], None, set()
+    for line in log.splitlines():
+        m = re.search(r"traverse_kernelILi(\d)E(f|13__nv_bfloat16)Lb(\d)E", line)
+        if m and "Compiling entry function" in line:
+            box = "f32" if m.group(2) == "f" else "bf16"
+            stack = "local stack" if m.group(3) == "1" else "scratch stack"
+            label = f"[bvh{m.group(1)} {box} rows, {stack}]"
+        elif label and ("registers" in line or "spill" in line):
+            out.append((label, line.strip()))
+            if "registers" in line:
+                with_regs.add(label)
+    want = {f"[bvh{a} {b} rows, {s}]" for a in (4, 8) for b in ("f32", "bf16")
+            for s in ("local stack", "scratch stack")}
+    if with_regs != want:
+        fail(f"ptxas reported registers for {sorted(with_regs)}, not the traversal "
+             f"kernel's 8 variants; missing {sorted(want - with_regs)}")
     return out
 
 
@@ -433,39 +524,45 @@ def phase_stage_kernels(torch, rng):
 
 def phase_goldens(torch):
     from repro_torch.api import Scene, make_ray
+    from repro_torch.convert import config_from_tag
 
     fields = ("tri_index", "hit", "quadbox_jobs", "triangle_jobs",
               "stack_overflow")
-    worst = 0
+    worst, n_entries = 0, 0
     for name in ("tetra", "sheet", "cluster"):
         data = np.load(GOLDEN / f"{name}.npz")
-        scene = Scene.from_triangles(data["tris"], device="cuda")
-        engine = scene.engine()
         rays = make_ray(data["ray_org"], data["ray_dir"], data["ray_extent"],
                         device="cuda")
-        for ray_type in ("closest", "any", "shadow"):
-            stem = f"bvh4_s64_fp32_fp32__lbvh__{ray_type}"
-            got = engine.trace(rays, ray_type, backend="cuda")
-            for f in fields:
-                exp = data[f"{stem}__{f}"]
-                if not np.array_equal(getattr(got, f).cpu().numpy(), exp):
-                    fail(f"golden {name}/{stem}: {f} differs")
-            if int(got.rounds) != int(data[f"{stem}__rounds"]):
-                fail(f"golden {name}/{stem}: rounds {int(got.rounds)} != "
-                     f"{int(data[stem + '__rounds'])}")
-            exp_t = torch.as_tensor(data[f"{stem}__t"], device="cuda")
-            fin = torch.isfinite(exp_t)
-            if not torch.equal(fin, torch.isfinite(got.t)):
-                fail(f"golden {name}/{stem}: t finiteness differs")
-            d = int(ulp_distance(got.t[fin], exp_t[fin]).max()) if fin.any() else 0
-            if d > GOLDEN_T_ULPS:
-                fail(f"golden {name}/{stem}: t is {d} ulps from the golden "
-                     f"(allowed {GOLDEN_T_ULPS})")
-            worst = max(worst, d)
-    say(f"phase 4 goldens: tetra/sheet/cluster x closest/any/shadow on the "
-        f"cuda backend: tri_index/hit/jobs/overflow/rounds exact, t within "
-        f"{worst} ulp(s) of the goldens (allowed {GOLDEN_T_ULPS}: reference "
-        f"FMA contraction)")
+        for tag in GOLDEN_CONFIGS:
+            for builder in ("lbvh", "sah"):
+                scene = Scene.from_triangles(data["tris"], builder=builder,
+                                             config=config_from_tag(tag), device="cuda")
+                engine = scene.engine()
+                for ray_type in ("closest", "any", "shadow"):
+                    stem = f"{tag}__{builder}__{ray_type}"
+                    got = engine.trace(rays, ray_type, backend="cuda")
+                    for f in fields:
+                        exp = data[f"{stem}__{f}"]
+                        if not np.array_equal(getattr(got, f).cpu().numpy(), exp):
+                            fail(f"golden {name}/{stem}: {f} differs")
+                    if int(got.rounds) != int(data[f"{stem}__rounds"]):
+                        fail(f"golden {name}/{stem}: rounds {int(got.rounds)} != "
+                             f"{int(data[stem + '__rounds'])}")
+                    exp_t = torch.as_tensor(data[f"{stem}__t"], device="cuda")
+                    fin = torch.isfinite(exp_t)
+                    if not torch.equal(fin, torch.isfinite(got.t)):
+                        fail(f"golden {name}/{stem}: t finiteness differs")
+                    d = int(ulp_distance(got.t[fin], exp_t[fin]).max()) if fin.any() else 0
+                    if d > GOLDEN_T_ULPS:
+                        fail(f"golden {name}/{stem}: t is {d} ulps from the golden "
+                             f"(allowed {GOLDEN_T_ULPS})")
+                    worst = max(worst, d)
+                    n_entries += 1
+    say(f"phase 4 goldens: {n_entries} entries (tetra/sheet/cluster x "
+        f"{'/'.join(GOLDEN_CONFIGS)} x lbvh/sah x closest/any/shadow), each scene "
+        f"built by the port on the card and traced on the cuda backend: "
+        f"tri_index/hit/jobs/overflow/rounds exact, t within {worst} ulp(s) of the "
+        f"goldens (allowed {GOLDEN_T_ULPS}: reference FMA contraction)")
 
 
 def camera_rays(scene):
@@ -657,12 +754,15 @@ def phase_main_path(torch):
     n_rays = RES * RES
     sum_qb = float(rec_k.quadbox_jobs.double().sum())
     sum_tri = float(rec_k.triangle_jobs.double().sum())
-    trav_bound = bound_ms(n_rays * TRAV_RAY_BYTES + sum_qb * TRAV_QB_BYTES
-                          + sum_tri * TRAV_TRI_BYTES,
-                          sum_qb * RAYBOX_OPS + sum_tri * TRAV_TRI_OPS)
+    trav_bound = traverse_bound(packed, n_rays, sum_qb, sum_tri, 4)
+    box_sectors, gathered = traverse_gathered(packed, scene.depth, n_rays, sum_qb,
+                                              sum_tri, 4)
     say(f"phase 6 traverse: {n_rays} primary rays; kernel {trav_ms:.3f} ms, "
-        f"bound {trav_bound[0]:.3f} ms ({trav_bound[1]}; an upper estimate "
-        f"of traffic: every job's bytes from HBM, which L2 can cut)")
+        f"bound {trav_bound[0]:.4f} ms ({trav_bound[1]}; distinct bytes against "
+        f"job-counted operations); gathered sectors {box_sectors:.3f} a box job, "
+        f"{TRAV_TRI_SECTORS} a triangle job: {gathered / 1e9:.3f} GB, "
+        f"{gathered / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate (traffic "
+        f"before L1 / L2, not the bound)")
 
     f32, i32 = torch.float32, torch.int32
     rb_args = ray_box_operands(primary, fr["emitters"])
@@ -707,6 +807,7 @@ def phase_main_path(torch):
         kernel_row("traverse", "traverse.cu", "src/repro/kernels/traverse.py:95",
                    launches, trav_ms, trav_plain_ms, trav_err, trav_bound),
     ]
+    rows[-1]["gathered_ms"] = gathered / HBM_BYTES_PER_S * 1e3
     stage_jobs = {k: fr[k] for k in ("primary", "emitters", "to_tri", "corners")}
     return rows, stage_jobs
 
@@ -1586,6 +1687,230 @@ def phase_dynamic(torch):
         f"{c_build_ms:.3f} ms ({n_pts} points)")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the datapath twins (arity, stack size, node-box codecs, builders)
+# ---------------------------------------------------------------------------
+
+
+def phase_twins(torch):
+    from repro_torch.api import Ray, Scene, make_ray
+    from repro_torch.convert import config_from_tag
+    from repro_torch.core.build.quality import clustered_soup
+    from repro_torch.core.bvh import DatapathConfig
+    from repro_torch.core.datapath import ray_triangle_test
+    from repro_torch.core.types import Triangle
+    from repro_torch.core.wavefront import trace_wavefront
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.traverse import pack_bvh, traverse_packed
+
+    tri = clustered_soup(np.random.default_rng(SEED), N_CLUSTERS, PER_CLUSTER, device="cuda")
+    light = torch.tensor([9.0, 11.0, -13.0], device="cuda")
+    primary = None
+    n_rays = RES * RES
+    out, rows = {}, []
+    for builder, tag in TWIN_CONFIGS:
+        config = config_from_tag(tag)
+        label = f"{builder}/{tag}"
+        # ---- one counted drive: build, closest, any, shadow ------------------
+        torch.cuda.synchronize()
+        nvcc.reset_launches()
+        scene = Scene.from_triangles(tri, builder=builder, config=config, device="cuda")
+        engine = scene.engine()
+        if primary is None:  # the first tree's root box frames every config's camera
+            primary = make_ray(*camera_rays(scene), device="cuda")
+        closest = engine.trace(primary)
+        anyhit = engine.trace(primary, "any")
+        idx = torch.nonzero(closest.hit).squeeze(1)
+        p = primary.origin[idx] + closest.t[idx, None] * primary.direction[idx]
+        to_light = light - p
+        dist = torch.linalg.vector_norm(to_light, dim=1)
+        shadow_rays = make_ray(p, to_light / dist[:, None], dist, device="cuda")
+        shadow = engine.trace(shadow_rays, "shadow")
+        torch.cuda.synchronize()
+        launches = nvcc.launch_counts().get("traverse", 0)
+        if engine.resolve_trace_backend() != "cuda" or launches < 3:
+            fail(f"phase 11 {label}: the drive launched the traversal kernel "
+                 f"{launches} times on backend {engine.resolve_trace_backend()!r}")
+        if scene.config != config or scene.builder != builder:
+            fail(f"phase 11 {label}: the scene holds {scene.builder}/{scene.config.tag}")
+        if bool(torch.isnan(closest.t).any()) or not bool(((closest.t > 0) | ~closest.hit).all()):
+            fail(f"phase 11 {label}: malformed closest t")
+
+        # ---- the kernel against its plain version, every field --------------
+        packed = pack_bvh(scene.bvh, config)
+        if packed.nlo.dtype != config.packed_box_dtype:
+            fail(f"phase 11 {label}: node rows packed as {packed.nlo.dtype}")
+        kern_ms, rec_k = event_ms(lambda: traverse_packed(packed, primary, scene.depth,
+                                                          config=config))
+        plain_ms, rec_p = event_ms(lambda: trace_wavefront(scene.bvh, primary, scene.depth,
+                                                           config=config), reps=1)
+        err = same_bits(f"phase 11 {label}: kernel vs trace_wavefront, {n_rays} closest "
+                        f"rays", rec_k, rec_p)
+        same_bits(f"phase 11 {label}: engine closest trace vs trace_wavefront",
+                  closest, rec_p)
+        for rtype, rays, rec in (("any", primary, anyhit), ("shadow", shadow_rays, shadow)):
+            same_bits(f"phase 11 {label}: engine {rtype} trace vs trace_wavefront, all "
+                      f"{rays.origin.shape[0]} rays", rec,
+                      trace_wavefront(scene.bvh, rays, scene.depth, ray_type=rtype,
+                                      config=config))
+
+        # ---- times and sizes -------------------------------------------------
+        build_ms = wall_ms(lambda: Scene.from_triangles(tri, builder=builder, config=config,
+                                                        device="cuda"))
+        trace_ms = wall_ms(lambda: engine.trace(primary))
+        sum_qb = float(rec_k.quadbox_jobs.double().sum())
+        sum_tri = float(rec_k.triangle_jobs.double().sum())
+        arity = config.arity
+        n_nodes = scene.bvh.node_lo.shape[0]
+        bound = traverse_bound(packed, n_rays, sum_qb, sum_tri, arity)
+        bound_analytic = traverse_bound(packed, n_rays, sum_qb, sum_tri, arity,
+                                        node_bytes=n_nodes * config.box_bytes_per_node)
+        box_sectors, gathered = traverse_gathered(packed, scene.depth, n_rays, sum_qb,
+                                                  sum_tri, arity)
+        packed_bytes = 2 * packed.nlo.numel() * packed.nlo.element_size()
+        n_ovf = int(closest.stack_overflow.sum())
+        say(f"phase 11 {label}: depth {scene.depth}, {n_nodes} nodes, packed node rows "
+            f"{packed_bytes / 1e6:.3f} MB ({packed.nlo.dtype}; analytic "
+            f"{n_nodes * config.box_bytes_per_node / 1e6:.3f} MB at "
+            f"{config.box_bytes_per_node} B a node); build {build_ms:.3f} ms, closest "
+            f"trace {trace_ms:.3f} ms (median of {TIMED_REPS}), kernel {kern_ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms; box / triangle jobs per ray "
+            f"{sum_qb / n_rays:.3f} / {sum_tri / n_rays:.3f}; rounds {int(rec_k.rounds)}; "
+            f"overflowed rays {n_ovf} closest, {int(anyhit.stack_overflow.sum())} any, "
+            f"{int(shadow.stack_overflow.sum())} shadow; bound {bound[0]:.4f} ms "
+            f"({bound[1]}; distinct bytes with the packed rows) / "
+            f"{bound_analytic[0]:.4f} ms ({bound_analytic[1]}; with the analytic node "
+            f"bytes); gathered sectors {box_sectors:.3f} a box job: "
+            f"{gathered / 1e9:.3f} GB, {gathered / HBM_BYTES_PER_S * 1e3:.3f} ms at the "
+            f"HBM rate (not the bound); launches {launches}")
+        row = kernel_row(f"traverse {label}", "traverse.cu",
+                         "src/repro/kernels/traverse.py:95", {f"traverse {label}": launches},
+                         kern_ms, plain_ms, err, bound)
+        row["bound_analytic_ms"] = bound_analytic[0]
+        row["gathered_ms"] = gathered / HBM_BYTES_PER_S * 1e3
+        rows.append(row)
+        out[(builder, tag)] = dict(scene=scene, closest=closest)
+
+    # ---- closest hits equal the same builder's exact BVH4 twin -----------------
+    base_tag = GOLDEN_CONFIGS[0]
+    ties = {}
+    for (builder, tag), o in out.items():
+        base = out[(builder, base_tag)]["closest"]
+        got = o["closest"]
+        ok = ~got.stack_overflow & ~base.stack_overflow
+        same_bits(f"phase 11 {builder}/{tag}: closest hit and t vs {builder}/{base_tag} "
+                  f"where neither overflowed", (got.hit[ok], got.t[ok]),
+                  (base.hit[ok], base.t[ok]))
+        d = torch.nonzero(ok & (got.tri_index != base.tri_index)).squeeze(1)
+
+        def t_of(tri_index):
+            r = Ray(*(f[d] for f in primary))
+            res = ray_triangle_test(r, Triangle(*(v[tri_index[d].long()] for v in tri)))
+            return res.t_num / res.t_denom
+
+        same_bits(f"phase 11 {builder}/{tag}: the {d.numel()} rays whose closest "
+                  f"triangle differs from {base_tag}'s: both triangles' t",
+                  (t_of(got.tri_index),), (t_of(base.tri_index),))
+        ties[(builder, tag)] = (int(d.numel()), int((~ok).sum()))
+    say("phase 11 closest vs the same builder's bvh4_s64_fp32_fp32 twin (hit and t "
+        "bit-equal where neither overflowed; rays whose triangle differs, each a tie; "
+        "rays left out for an overflow): "
+        + ", ".join(f"{b}/{t} {n} / {o}" for (b, t), (n, o) in ties.items()))
+
+    # ---- the codec twins' boxes hold the exact twin's ----------------------------
+    # A widened box is hit wherever the exact one is (the slab test is
+    # monotone in the bounds), so a ray that commits no hit, whose walk is
+    # never pruned, visits a superset of the exact twin's nodes.  A ray that
+    # hits may visit fewer: the widened boxes reorder its children (sorted by
+    # tmin), the walk finds its hit in another order and prunes differently.
+    supersets = []
+    for (builder, tag), o in out.items():
+        config = o["scene"].config
+        if config.exact_boxes:
+            continue
+        exact = DatapathConfig(config.arity, config.stack_size)
+        twin = out.get((builder, exact.tag))
+        if twin is None:  # the same tree as the fp32 build, traced under its config
+            src = out[(builder, DatapathConfig(config.arity).tag)]["scene"]
+            twin_scene = Scene(src.bvh, src.depth, builder=builder, config=exact)
+            ex = twin_scene.engine().trace(primary)
+        else:
+            ex = twin["closest"]
+        got = o["closest"]
+        ok = ~got.stack_overflow & ~ex.stack_overflow
+        miss = ok & ~got.hit & ~ex.hit
+        for f in ("quadbox_jobs", "triangle_jobs"):
+            below = miss & (getattr(got, f) < getattr(ex, f))
+            if bool(below.any()):
+                fail(f"phase 11 {builder}/{tag}: {f} below the exact twin {exact.tag}'s "
+                     f"on {int(below.sum())} rays that hit nothing")
+        fewer = ok & ((got.quadbox_jobs < ex.quadbox_jobs)
+                      | (got.triangle_jobs < ex.triangle_jobs))
+        supersets.append(
+            f"{builder}/{tag} vs {exact.tag}: >= on all {int(miss.sum())} missing rays; "
+            f"over the {int(ok.sum())} rays neither overflowed, box jobs "
+            f"{(got.quadbox_jobs[ok] - ex.quadbox_jobs[ok]).double().mean().item():+.4f}, "
+            f"triangle jobs "
+            f"{(got.triangle_jobs[ok] - ex.triangle_jobs[ok]).double().mean().item():+.4f} "
+            f"a ray, {int(fewer.sum())} hit rays with fewer jobs")
+    say("phase 11 codec twins vs the exact twin of the same builder, arity and stack "
+        "(traced under its own config; closest): " + "; ".join(supersets))
+
+    # ---- refit under the config re-encodes as the build does -----------------
+    for (builder, tag), o in out.items():
+        if o["scene"].config.exact_boxes and o["scene"].config.arity == 4:
+            continue
+        scene = o["scene"]
+        built = scene.bvh
+        scene.refit(tri)
+        same_bits(f"phase 11 {builder}/{tag}: Scene.refit with the build's own triangles "
+                  f"vs the build",
+                  (scene.bvh.node_lo, scene.bvh.node_hi, scene.bvh.leaf_tri,
+                   scene.bvh.leaf_perm), (built.node_lo, built.node_hi, built.leaf_tri,
+                                          built.leaf_perm))
+    # ---- signed zeros: the key reductions of the builds and refits on the card
+    rng = np.random.default_rng(SIGNED_ZERO_SEED)
+    v = rng.normal(0.0, 1.0, (3, SIGNED_ZERO_TRIS, 3)).astype(np.float32)
+    zero = rng.random(v.shape) < SIGNED_ZERO_SHARE
+    v[zero] = np.where(rng.random(int(zero.sum())) < 0.5, -0.0, 0.0)
+    soups = {dev: Triangle(*(torch.as_tensor(x, device=dev) for x in v))
+             for dev in ("cuda", "cpu")}
+    n_neg = 0
+
+    def tree_fields(b):
+        return (b.node_lo, b.node_hi, b.leaf_tri, b.leaf_perm)
+
+    for builder in ("lbvh", "sah"):
+        for tag in GOLDEN_CONFIGS:
+            config = config_from_tag(tag)
+            on_card, on_cpu = (Scene.from_triangles(soups[dev], builder=builder,
+                                                    config=config, device=dev)
+                               for dev in ("cuda", "cpu"))
+            same_bits(f"phase 11 signed-zero soup {builder}/{tag}: the build on the "
+                      f"card vs on the CPU", tree_fields(on_card.bvh),
+                      tuple(f.cuda() for f in tree_fields(on_cpu.bvh)))
+            built = on_card.bvh
+            on_card.refit(soups["cuda"])
+            same_bits(f"phase 11 signed-zero soup {builder}/{tag}: refit vs the build",
+                      tree_fields(on_card.bvh), tree_fields(built))
+            lo = built.node_lo
+            n_neg += int(((lo == 0) & torch.signbit(lo)).sum())
+    if n_neg == 0:
+        fail("phase 11 signed-zero soup: no node bound is -0.0")
+    say(f"phase 11 signed-zero soup ({SIGNED_ZERO_TRIS} triangles, "
+        f"{SIGNED_ZERO_SHARE:.0%} of coordinates +-0.0): both builders under every "
+        f"golden config bit-equal on the card and the CPU, refit bit-equal to the "
+        f"build; {n_neg} node lo bounds are -0.0")
+
+    jobs = {k: (o["closest"].quadbox_jobs.double().mean().item()
+                + o["closest"].triangle_jobs.double().mean().item()) for k, o in out.items()}
+    say(f"phase 11 refit under bvh8 and bf16-compressed (both builders) bit-equal to the "
+        f"build; SAH / LBVH jobs per camera ray (box + triangle) at {base_tag}: "
+        f"{jobs[('sah', base_tag)]:.3f} / {jobs[('lbvh', base_tag)]:.3f} = "
+        f"{jobs[('sah', base_tag)] / jobs[('lbvh', base_tag)]:.4f}")
+    return rows
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_dir():
         fail(f"{SRC / 'repro_torch'} or {GOLDEN} missing: run from a "
@@ -1609,6 +1934,10 @@ def main() -> None:
         if src == "neighbor.cu":
             for label, stack, regs in neighbor_ptxas(log):
                 say(f"  ptxas neighbor.cu {label}: {regs}; {stack}")
+            continue
+        if src == "traverse.cu":
+            for label, line in traverse_ptxas(log):
+                say(f"  ptxas traverse.cu {label}: {line}")
             continue
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1643,6 +1972,7 @@ def main() -> None:
     kernels += phase_tree(torch)
     kernels += phase_stream(torch, stage_jobs, vectors)
     phase_dynamic(torch)
+    kernels += phase_twins(torch)
 
     say(card)
     say(json.dumps({"kernels": kernels}))

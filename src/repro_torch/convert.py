@@ -4,16 +4,19 @@ The port imports nothing of ``repro``; a caller who holds a ``repro``
 BVH, ray batch, vector index, point cloud or datapath job stream passes
 its arrays as numpy and gets the port's objects back.  With these,
 traversal parity can be tested apart from builder parity: both packages
-traverse the very same tree.
+traverse the very same tree, under any datapath config (a config crosses
+as its ``tag``, e.g. ``"bvh8_s64_bf16_compressed"``).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .core.bvh import BVH4, DEFAULT_CONFIG
+import re
+
+from .core.bvh import BVH4, DatapathConfig, leaf_depth, num_nodes, resolve_config
 from .core.device import resolve_device
-from .core.session import PointCloudScene, VectorIndex
+from .core.session import PointCloudScene, Scene, VectorIndex
 from .core.stream import DatapathJob
 from .core.types import Box, DatapathState, Ray, Triangle
 
@@ -26,15 +29,51 @@ def _i32(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x, dtype=np.int32), device=device)
 
 
+_TAG = re.compile(r"bvh(\d+)_s(\d+)_(\w+?)_(\w+)")
+
+
+def config_from_tag(tag) -> DatapathConfig:
+    """A ``DatapathConfig.tag`` (``"bvh4_s64_fp32_fp32"``) -> the port's
+    validated config; a config (or None) passes through ``resolve_config``."""
+    if tag is None or isinstance(tag, DatapathConfig):
+        return resolve_config(tag)
+    m = _TAG.fullmatch(str(tag))
+    if m is None:
+        raise ValueError(f"not a DatapathConfig tag: {tag!r}")
+    return DatapathConfig(int(m[1]), int(m[2]), m[3], m[4]).validate()
+
+
 def bvh_from_numpy(node_lo, node_hi, leaf_tri, a, b, c, leaf_perm, *,
-                   device=None) -> BVH4:
-    """A ``repro`` ``BVH4``'s arrays (as numpy) -> the port's ``BVH4``."""
+                   config=None, device=None) -> BVH4:
+    """A ``repro`` ``BVH4``'s arrays (as numpy) -> the port's ``BVH4``.
+    ``config`` (a tag or a config) checks that the arrays are a complete
+    tree at its arity."""
+    arity = config_from_tag(config).arity
+    n_leaf = np.shape(leaf_tri)[0]
+    depth = leaf_depth(n_leaf, arity)
+    if arity**depth != n_leaf or np.shape(node_lo)[0] != num_nodes(depth, arity):
+        raise ValueError(f"{n_leaf} leaves and {np.shape(node_lo)[0]} nodes are "
+                         f"not a complete {arity}-ary tree")
     device = resolve_device(device)
     return BVH4(node_lo=_f32(node_lo, device), node_hi=_f32(node_hi, device),
                 leaf_tri=_i32(leaf_tri, device),
                 triangles=Triangle(_f32(a, device), _f32(b, device),
                                    _f32(c, device)),
                 leaf_perm=_i32(leaf_perm, device))
+
+
+def scene_from_numpy(node_lo, node_hi, leaf_tri, a, b, c, leaf_perm, depth, *,
+                     builder: str = "lbvh", config=None, device=None) -> Scene:
+    """A ``repro`` ``BuildResult`` (its tree's arrays as numpy, its depth,
+    builder and config or config tag) -> the port's ``Scene`` over the same
+    tree, traced under the same config."""
+    config = config_from_tag(config)
+    bvh = bvh_from_numpy(node_lo, node_hi, leaf_tri, a, b, c, leaf_perm,
+                         config=config, device=device)
+    if config.arity**int(depth) != bvh.leaf_tri.shape[0]:
+        raise ValueError(f"depth {depth} does not match {bvh.leaf_tri.shape[0]} "
+                         f"leaves at arity {config.arity}")
+    return Scene(bvh, int(depth), builder=builder, config=config)
 
 
 def rays_from_numpy(origin, direction, inv, extent, kx, ky, kz, shear, *,
@@ -57,15 +96,16 @@ def index_from_numpy(database, sq_norms=None, *, device=None) -> VectorIndex:
 
 
 def point_cloud_from_numpy(node_lo, node_hi, leaf_tri, points, leaf_perm, depth,
-                           *, device=None) -> PointCloudScene:
+                           *, config=None, device=None) -> PointCloudScene:
     """A ``repro`` point BVH's arrays (as numpy; ``points`` is its
-    ``triangles.a``) -> the port's ``PointCloudScene`` over the same tree."""
+    ``triangles.a``) and its config or config tag -> the port's
+    ``PointCloudScene`` over the same tree."""
     device = resolve_device(device)
     pts = _f32(points, device)
     bvh = BVH4(node_lo=_f32(node_lo, device), node_hi=_f32(node_hi, device),
                leaf_tri=_i32(leaf_tri, device), triangles=Triangle(pts, pts, pts),
                leaf_perm=_i32(leaf_perm, device))
-    return PointCloudScene(bvh, int(depth), config=DEFAULT_CONFIG)
+    return PointCloudScene(bvh, int(depth), config=config_from_tag(config))
 
 
 def jobs_from_numpy(jobs, *, device=None) -> DatapathJob:

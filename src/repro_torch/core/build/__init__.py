@@ -2,9 +2,10 @@
 
 The port's counterpart of ``repro/core/build/__init__.py``.  Builders
 register under a name and all emit the same implicit :class:`BVH4`
-layout.  Only ``"lbvh"`` is ported so far.  The package also holds the
-point-cloud builder (``points``), the refit of a moved soup (``refit``)
-and the tree-quality metrics (``quality``).
+layout: ``"lbvh"`` (Morton order) and ``"sah"`` (binned SAH), each at
+any :class:`~repro_torch.core.bvh.DatapathConfig`.  The package also
+holds the point-cloud builder (``points``), the refit of a moved soup
+(``refit``) and the tree-quality metrics (``quality``).
 """
 from __future__ import annotations
 
@@ -48,8 +49,9 @@ def get_builder(name: str) -> Callable:
 def build(triangles: Triangle, builder: str = "lbvh", depth: int | None = None,
           config: DatapathConfig | None = None) -> BuildResult:
     """Build an acceleration structure with a registered builder.  ``depth``
-    defaults to the smallest depth whose ``4**depth`` leaf slots fit the
-    soup.  The tree lives on the device of ``triangles``."""
+    defaults to the smallest depth whose ``config.arity**depth`` leaf slots
+    fit the soup; ``config`` picks the arity and the node-box codec.  The
+    tree lives on the device of ``triangles``."""
     fn = get_builder(builder)
     config = resolve_config(config)
     n = triangles.a.shape[0]
@@ -63,7 +65,7 @@ def build(triangles: Triangle, builder: str = "lbvh", depth: int | None = None,
 
 
 # builder modules self-register on import
-from . import lbvh  # noqa: E402,F401
+from . import lbvh, sah  # noqa: E402,F401
 from .lbvh import build_bvh4  # noqa: E402,F401
 from .points import build_point_bvh, point_boxes, refit_points  # noqa: E402,F401
 from .quality import (  # noqa: E402,F401

@@ -7,8 +7,8 @@ The port's counterpart of ``repro/core/build/lbvh.py``:
    reference's uint32 wraparound.
 2. Sort along the Z-order curve with a *stable* argsort (``jnp.argsort``
    is stable, and ties between equal codes must keep index order).
-3. Lay the sorted leaves into the implicit complete 4-ary tree and fit the
-   boxes bottom-up.
+3. Lay the sorted leaves into the implicit complete ``arity``-ary tree,
+   fit the boxes bottom-up and apply the config's node-box codec.
 
 Every step is a tensor op on the triangles' device, so a scene whose
 triangles are on the card is built on the card.
@@ -19,8 +19,8 @@ import functools
 
 import torch
 
-from ..bvh import (BVH4, DatapathConfig, bvh_depth, fit_nodes, leaf_arrays,
-                   nondegenerate_mask, resolve_config)
+from ..bvh import (BVH4, DatapathConfig, bvh_depth, encode_nodes, fit_nodes,
+                   leaf_arrays, nondegenerate_mask, resolve_config)
 from ..types import Box, Triangle, aabb_of_triangles
 from . import register_builder
 
@@ -71,7 +71,8 @@ def lbvh_leaf_perm(boxes: Box, depth: int, arity: int = 4) -> torch.Tensor:
 @register_builder("lbvh")
 def build_bvh4(tri: Triangle, depth: int | None = None,
                config: DatapathConfig | None = None) -> BVH4:
-    """Build a BVH4 over a triangle soup on the soup's device."""
+    """Build a wide BVH over a triangle soup on the soup's device; ``config``
+    picks the arity and the node-box codec (default BVH4 / fp32)."""
     config = resolve_config(config)
     n = tri.a.shape[0]
     if depth is None:
@@ -81,5 +82,6 @@ def build_bvh4(tri: Triangle, depth: int | None = None,
     leaf_tri, leaf_lo, leaf_hi = leaf_arrays(leaf_perm, boxes,
                                              nondegenerate_mask(tri))
     node_lo, node_hi = fit_nodes(leaf_lo, leaf_hi, depth, config.arity)
+    node_lo, node_hi = encode_nodes(node_lo, node_hi, depth, config)
     return BVH4(node_lo=node_lo, node_hi=node_hi, leaf_tri=leaf_tri,
                 triangles=tri, leaf_perm=leaf_perm)

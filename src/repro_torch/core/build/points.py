@@ -9,8 +9,10 @@ record stays a valid soup; the neighbour engines read the cloud back as
 zero-area by nature, so every point is live.
 
 A moved cloud refits through :func:`refit_points`, the cull-free twin of
-the triangle refit.  Only the LBVH core is ported; ``builder="sah"`` raises
-``NotImplementedError`` until the SAH builder is.
+the triangle refit.  Both slot-assignment cores serve clouds (``"lbvh"``,
+``"sah"``).  Clouds take the node-box codecs but stay 4-wide: the
+neighbour engines traverse the quad-box datapath, and a widened box only
+adds visited nodes, never neighbours.
 """
 from __future__ import annotations
 
@@ -21,11 +23,11 @@ from ..bvh import (BVH4, DatapathConfig, bvh4_depth, depth_of, encode_nodes,
 from ..types import Box, Triangle
 from . import BuildResult
 from .lbvh import lbvh_leaf_perm
+from .sah import sah_leaf_perm
 
 # the slot-assignment cores shared with the triangle builders (the same
 # names, so ``builder=`` means the same thing for both kinds of scene)
-POINT_BUILDERS = {"lbvh": lbvh_leaf_perm}
-_NOT_PORTED = ("sah",)
+POINT_BUILDERS = {"lbvh": lbvh_leaf_perm, "sah": sah_leaf_perm}
 
 
 def point_boxes(points: torch.Tensor) -> Box:
@@ -67,10 +69,6 @@ def build_point_bvh(points: torch.Tensor, builder: str = "lbvh",
     points = _check_points(points, "build_point_bvh")
     config = _check_point_config(config, "build_point_bvh")
     n = points.shape[0]
-    if builder in _NOT_PORTED:
-        raise NotImplementedError(
-            f"point builder {builder!r} is not ported yet (repro_torch has "
-            f"{tuple(POINT_BUILDERS)})")
     if builder not in POINT_BUILDERS:
         raise ValueError(f"unknown point builder {builder!r} "
                          f"(registered: {tuple(POINT_BUILDERS)})")

@@ -27,6 +27,7 @@ from ..bvh import BVH4, DatapathConfig, depth_of, level_offset, resolve_config
 from ..device import resolve_device
 from ..types import Ray, Triangle, make_ray
 from ..wavefront import trace_wavefront
+from .sah import _half_area
 
 
 class TreeStats(NamedTuple):
@@ -46,12 +47,6 @@ class TreeStats(NamedTuple):
     bytes_per_node: int  # node-box storage of the config's codec
     compression_ratio: float  # raw-f32 24 B/node over bytes_per_node
     mean_branching_factor: float  # mean live children per live internal node
-
-
-def _half_area(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
-    """Half surface area of boxes (..., 3); the SAH cost weight."""
-    d = hi - lo
-    return d[..., 0] * d[..., 1] + d[..., 1] * d[..., 2] + d[..., 2] * d[..., 0]
 
 
 def sah_cost(bvh: BVH4, c_box: float = 1.0, c_tri: float = 1.0,

@@ -49,18 +49,27 @@ def fmin(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(a < b, a, b)
 
 
-# Compare-exchange schedule of the paper's QuadSortRecFN network.
+# Compare-exchange schedules per sort width: 4 is the paper's
+# QuadSortRecFN network; 8 is Batcher's odd-even merge sort (19
+# compare-exchanges) of the BVH8 datapath twin.
 SORT_NETWORKS = {
     4: [(0, 1), (2, 3), (0, 2), (1, 3), (1, 2)],
+    8: [(0, 1), (2, 3), (4, 5), (6, 7),
+        (0, 2), (1, 3), (4, 6), (5, 7),
+        (1, 2), (5, 6),
+        (0, 4), (1, 5), (2, 6), (3, 7),
+        (2, 4), (3, 5),
+        (1, 2), (3, 4), (5, 6)],
 }
 
 
 def boxsort(keys: torch.Tensor, *payloads: torch.Tensor):
-    """Fixed-width sorting network over the trailing axis (width 4)."""
+    """Fixed-width sorting network over the trailing axis (width 4 or 8);
+    payloads are permuted alongside the keys."""
     width = keys.shape[-1]
     if width not in SORT_NETWORKS:
-        raise NotImplementedError(
-            f"sort width {width}: the port supports {tuple(SORT_NETWORKS)}")
+        raise ValueError(f"sort width {width}: the networks are "
+                         f"{tuple(SORT_NETWORKS)}")
     cols = list(keys.unbind(-1))
     pl = [list(p.unbind(-1)) for p in payloads]
     for i, j in SORT_NETWORKS[width]:
@@ -80,8 +89,9 @@ def quadsort(keys: torch.Tensor, *payloads: torch.Tensor):
 
 
 def ray_box_test(ray: Ray, boxes: Box) -> QuadBoxResult:
-    """Batched ray-vs-4-AABB test (OpQuadbox).  ray fields: (...,) batch;
-    boxes: (..., 4, 3) lo/hi."""
+    """Batched ray-vs-W-AABB test (OpQuadbox at W = 4, the BVH8 twin's
+    8-wide box test at W = 8).  ray fields: (...,) batch; boxes:
+    (..., W, 3) lo/hi."""
     o = ray.origin.unsqueeze(-2)  # (..., 1, 3)
     inv = ray.inv.unsqueeze(-2)
 

@@ -45,8 +45,10 @@ parameters, plan, row signature), keyed as the reference keys its
 compiled functions (:meth:`QueryEngine.cache_info`), and prepares each
 backend's context once per scene or cloud version, so an animated scene
 (:meth:`Scene.refit`, :meth:`PointCloudScene.refit`) misses no key per
-frame and re-packs once.  Not ported yet: the fan-out over
-several cards, the SAH builder and every config but the default.
+frame and re-packs once.  Every :class:`~repro_torch.core.bvh.DatapathConfig`
+(arity 4 or 8, any stack size, the bf16 and compressed node codecs) and
+both builders (``"lbvh"``, ``"sah"``) serve every backend.  Not ported
+yet: the fan-out over several cards.
 """
 from __future__ import annotations
 
@@ -375,7 +377,8 @@ class Scene:
 
     def __repr__(self):
         return (f"Scene(num_triangles={self.num_triangles}, depth={self.depth}, "
-                f"builder={self.builder!r}, device={str(self.device)!r})")
+                f"builder={self.builder!r}, config={self.config.tag!r}, "
+                f"device={str(self.device)!r})")
 
 
 def _validate_points_finite(points: torch.Tensor, where: str) -> None:
@@ -481,12 +484,15 @@ class PointCloudScene:
 
     @classmethod
     def from_points(cls, points, depth: int | None = None, device=None,
-                    builder: str = "lbvh") -> "PointCloudScene":
-        """Build from an ``(N, 3)`` point array on ``device`` (default CUDA,
-        raising without a GPU; pass ``device="cpu"`` for the plain path)."""
+                    builder: str = "lbvh",
+                    config: DatapathConfig | None = None) -> "PointCloudScene":
+        """Build from an ``(N, 3)`` point array with the named builder core
+        (``"lbvh"`` or ``"sah"``) on ``device`` (default CUDA, raising
+        without a GPU; pass ``device="cpu"`` for the plain path).  ``config``
+        may pick a node-box codec; point trees stay 4-wide."""
         points = as_f32(points, resolve_device(device))
         _validate_points_finite(points, "PointCloudScene.from_points")
-        res = build_point_bvh(points, builder, depth)
+        res = build_point_bvh(points, builder, depth, config=config)
         return cls(res.bvh, res.depth, builder=res.builder, config=res.config)
 
     def refit(self, points) -> "PointCloudScene":
@@ -808,8 +814,8 @@ class QueryEngine:
                                                   device=dev))
 
         plan = self._plan(n, shards, chunk_size, lane_multiple=lane_multiple)
-        key = (("trace", name, ray_type, t_min, max_rounds) + plan.key
-               + _elem_key(rays))
+        key = (("trace", name, ray_type, t_min, max_rounds, scene.config.tag)
+               + plan.key + _elem_key(rays))
         run = self._cached_run(key, lambda: build(scene, ray_type, t_min, max_rounds))
         ctx = self._prepared("trace", name, scene, prepare)
         outs = [run(ctx, block) for block in split_blocks(rays, plan)]

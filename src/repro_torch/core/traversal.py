@@ -19,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from .bvh import BVH4, DEFAULT_CONFIG, DatapathConfig, level_offset, resolve_config
+from .bvh import BVH4, DatapathConfig, level_offset, resolve_config
 from .datapath import ray_box_test, ray_triangle_test
 from .types import Box, Ray, Triangle
 
@@ -35,25 +35,14 @@ class HitRecord(NamedTuple):
     stack_overflow: torch.Tensor  # (...,) bool  a push was dropped at capacity
 
 
-def _oracle_config(config: DatapathConfig | None) -> DatapathConfig:
-    """The oracle keeps its stack on the host, so it takes any stack size;
-    in every other field the config must be the ported default."""
-    if config is None:
-        return DEFAULT_CONFIG
-    if config.stack_size < 1:
-        raise ValueError(f"stack_size must be >= 1, got {config.stack_size}")
-    resolve_config(config._replace(stack_size=DEFAULT_CONFIG.stack_size))
-    return config
-
-
 def trace_ray(bvh: BVH4, ray: Ray, depth: int,
               config: DatapathConfig | None = None) -> HitRecord:
     """Closest-hit traversal of a single ray (fields without a batch
     axis).  At a leaf parent only the triangle jobs' results are read and
     elsewhere only the box test's, as in the reference's masked loop.
-    ``config`` may set any ``stack_size``; its other fields are the
-    default's."""
-    config = _oracle_config(config)
+    ``config`` sets the arity and the stack size (the codecs are in the
+    tree's boxes already)."""
+    config = resolve_config(config)
     arity, stack_size = config.arity, config.stack_size
     leaf_parent_offset = level_offset(depth - 1, arity)
     leaf_offset = level_offset(depth, arity)

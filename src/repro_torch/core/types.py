@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .knn import key_value, order_key
 
 # Table V: 2-bit opcode
 OP_TRIANGLE = 0
@@ -178,6 +179,10 @@ def make_ray(origin, direction, extent=None, *, device=None) -> Ray:
 
 
 def aabb_of_triangles(tri: Triangle) -> Box:
-    """Tight AABB of each triangle (the builder's primitive boxes)."""
+    """Tight AABB of each triangle (the builder's primitive boxes).  The
+    reductions run on int32 order keys (:func:`~repro_torch.core.knn.order_key`),
+    so -0.0 orders below +0.0 as in the reference's."""
     v = torch.stack([tri.a, tri.b, tri.c], dim=-2)  # (..., 3verts, 3)
-    return Box(lo=v.amin(dim=-2), hi=v.amax(dim=-2))
+    k = order_key(v)
+    box = key_value(torch.stack([k.amin(dim=-2), k.amax(dim=-2)]))
+    return Box(lo=box[0], hi=box[1])

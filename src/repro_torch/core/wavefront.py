@@ -1,11 +1,12 @@
-"""Wavefront BVH4 traversal: one batched datapath job stream per round.
+"""Wavefront BVH traversal: one batched datapath job stream per round.
 
 The port's counterpart of ``repro/core/wavefront.py`` and the **plain
 version of the fused traversal kernel** (``csrc/traverse.cu``): the CPU
 path of ``QueryEngine.trace``, and what ``chip_smoke.py`` holds the
 kernel against on the card.  Each round every active ray pops its stack
-top, issues one OpQuadbox job on the node's 4 children and, at a
-leaf-parent node, 4 OpTriangle jobs with the external divide; the best
+top, issues one box-test job on the node's ``arity`` children (4 or 8,
+by the :class:`~repro_torch.core.bvh.DatapathConfig`) and, at a
+leaf-parent node, ``arity`` OpTriangle jobs with the external divide; the best
 hit commits under ``t < t_best``, ``t <= extent`` and ``t >= t_min``; hit
 children are pushed farthest first, with drop-and-flag at ``stack_size``.
 

@@ -32,15 +32,52 @@ __device__ __forceinline__ void cas(float* key, int* idx, int* hit, int i, int j
   }
 }
 
-// OpQuadbox: one ray against 4 AABBs.  lo/hi are [box][dim]; neg[d] is the
-// sign bit of the ray direction (so dir == -0.0 swaps too).  Outputs tmin
-// sorted ascending, with the box index and hit flag of each sorted slot.
-__device__ __forceinline__ void op_quadbox(const float org[3], const float inv[3],
-                                           const bool neg[3], const float lo[4][3],
-                                           const float hi[4][3], float tmin[4],
-                                           int idx[4], int hit[4]) {
+// The child sorting networks, one per box-test width: the paper's
+// 5-comparator QuadSortRecFN at 4, Batcher's 19-comparator odd-even merge
+// sort at 8 (the BVH8 twin), pair for pair as core/datapath.SORT_NETWORKS.
+template <int W>
+__device__ __forceinline__ void sort_network(float* key, int* idx, int* hit) {
+  static_assert(W == 4 || W == 8, "the box test is 4 or 8 wide");
+  if constexpr (W == 4) {
+    cas(key, idx, hit, 0, 1);
+    cas(key, idx, hit, 2, 3);
+    cas(key, idx, hit, 0, 2);
+    cas(key, idx, hit, 1, 3);
+    cas(key, idx, hit, 1, 2);
+  } else {
+    cas(key, idx, hit, 0, 1);
+    cas(key, idx, hit, 2, 3);
+    cas(key, idx, hit, 4, 5);
+    cas(key, idx, hit, 6, 7);
+    cas(key, idx, hit, 0, 2);
+    cas(key, idx, hit, 1, 3);
+    cas(key, idx, hit, 4, 6);
+    cas(key, idx, hit, 5, 7);
+    cas(key, idx, hit, 1, 2);
+    cas(key, idx, hit, 5, 6);
+    cas(key, idx, hit, 0, 4);
+    cas(key, idx, hit, 1, 5);
+    cas(key, idx, hit, 2, 6);
+    cas(key, idx, hit, 3, 7);
+    cas(key, idx, hit, 2, 4);
+    cas(key, idx, hit, 3, 5);
+    cas(key, idx, hit, 1, 2);
+    cas(key, idx, hit, 3, 4);
+    cas(key, idx, hit, 5, 6);
+  }
+}
+
+// The box test: one ray against W AABBs (OpQuadbox at W = 4).  lo/hi are
+// [box][dim]; neg[d] is the sign bit of the ray direction (so dir == -0.0
+// swaps too).  Outputs tmin sorted ascending, with the box index and hit
+// flag of each sorted slot.
+template <int W>
+__device__ __forceinline__ void op_box_test(const float org[3], const float inv[3],
+                                            const bool neg[3], const float lo[W][3],
+                                            const float hi[W][3], float tmin[W],
+                                            int idx[W], int hit[W]) {
 #pragma unroll
-  for (int b = 0; b < 4; ++b) {
+  for (int b = 0; b < W; ++b) {
     float t_near[3], t_far[3];
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
@@ -57,12 +94,15 @@ __device__ __forceinline__ void op_quadbox(const float org[3], const float inv[3
     idx[b] = b;
     hit[b] = mn <= mx;  // stage 5
   }
-  // stage 10: the paper's 5-comparator quad-sort network
-  cas(tmin, idx, hit, 0, 1);
-  cas(tmin, idx, hit, 2, 3);
-  cas(tmin, idx, hit, 0, 2);
-  cas(tmin, idx, hit, 1, 3);
-  cas(tmin, idx, hit, 1, 2);
+  sort_network<W>(tmin, idx, hit);  // stage 10
+}
+
+// OpQuadbox: the paper's 4-wide box test.
+__device__ __forceinline__ void op_quadbox(const float org[3], const float inv[3],
+                                           const bool neg[3], const float lo[4][3],
+                                           const float hi[4][3], float tmin[4],
+                                           int idx[4], int hit[4]) {
+  op_box_test<4>(org, inv, neg, lo, hi, tmin, idx, hit);
 }
 
 // Point-vs-4-AABB squared distance, the neighbour-search twin of
@@ -89,11 +129,7 @@ __device__ __forceinline__ void point_box_test(const float p[3], const float lo[
     idx[b] = b;
     unused[b] = 0;
   }
-  cas(dist, idx, unused, 0, 1);
-  cas(dist, idx, unused, 2, 3);
-  cas(dist, idx, unused, 0, 2);
-  cas(dist, idx, unused, 1, 3);
-  cas(dist, idx, unused, 1, 2);
+  sort_network<4>(dist, idx, unused);
 }
 
 __device__ __forceinline__ float select_dim(const float v[3], int k) {

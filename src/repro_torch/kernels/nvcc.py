@@ -41,7 +41,7 @@ SIGNATURES = {
     "rayflex_raybox": [_P] * 8 + [_I, _P],
     "rayflex_raytri": [_P] * 9 + [_I, _P],
     "rayflex_traverse": [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _I, _I, _I,
-                         _I, _F, _I, _P, _P, _P, _P, _P, _P],
+                         _I, _F, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P],
     "rayflex_distance": [_P, _P, _P, _I, _I, _I, _I, _P],
     "rayflex_norm": [_P, _P, _I, _I, _P],
     "rayflex_neighbor": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,

@@ -34,6 +34,10 @@ from ..core.wavefront import (RAY_TYPES, WavefrontRecord, default_t_min,
 from . import nvcc
 from .common import LANES, ceil_to, pad_cols
 
+#: the deepest stack the traversal kernel keeps in a thread-local array
+#: (``csrc/traverse.cu``); a deeper one lives in per-ray device scratch
+LOCAL_STACK = 64
+
 # Ray operand row layout: one (N_RAY_ROWS, n_pad) union bundle.
 ROW_T_ORG = 0  # rows 0..2   origin
 ROW_T_DIR = 3  # rows 3..5   direction (sign bits drive the slab swap)
@@ -47,8 +51,8 @@ N_RAY_ROWS = 16
 class PackedBVH(NamedTuple):
     """The fused kernel's tree operands (see :func:`pack_bvh`)."""
 
-    nlo: torch.Tensor  # (3, nodes_pad) f32, padding columns +inf
-    nhi: torch.Tensor  # (3, nodes_pad) f32, padding columns -inf
+    nlo: torch.Tensor  # (3, nodes_pad) f32 or bf16, padding columns +inf
+    nhi: torch.Tensor  # (3, nodes_pad) f32 or bf16, padding columns -inf
     leaf: torch.Tensor  # (1, leaf_pad) i32, padding -1
     tris: torch.Tensor  # (9, tri_pad) f32: rows a.xyz | b.xyz | c.xyz
 
@@ -83,12 +87,18 @@ def unpack_rays(op: torch.Tensor, n: int) -> Ray:
 
 def pack_bvh(bvh: BVH4, config: DatapathConfig | None = None) -> PackedBVH:
     """BVH -> the kernel's operands, each column-padded to a lane multiple.
-    Padded node columns carry inverted boxes; padded leaf slots carry -1."""
-    resolve_config(config)
+    Padded node columns carry inverted boxes; padded leaf slots carry -1.
+    The narrow configs store the node rows as genuine bf16
+    (``config.packed_box_dtype``): their codecs put every bound the kernel
+    reads on the bf16 grid (all but the root's own box), so the cast is
+    lossless there and the kernel's upcast gives back the tree's f32
+    values, at half the bytes."""
+    config = resolve_config(config)
     nodes_pad = ceil_to(bvh.node_lo.shape[0], LANES)
     inf = float("inf")
-    nlo = pad_cols(bvh.node_lo.T, nodes_pad, inf).contiguous()
-    nhi = pad_cols(bvh.node_hi.T, nodes_pad, -inf).contiguous()
+    box_dtype = config.packed_box_dtype
+    nlo = pad_cols(bvh.node_lo.T, nodes_pad, inf).to(box_dtype).contiguous()
+    nhi = pad_cols(bvh.node_hi.T, nodes_pad, -inf).to(box_dtype).contiguous()
     leaf_pad = ceil_to(bvh.leaf_tri.shape[0], LANES)
     leaf = pad_cols(bvh.leaf_tri[None, :].to(torch.int32), leaf_pad, -1)
     tri = bvh.triangles
@@ -97,13 +107,16 @@ def pack_bvh(bvh: BVH4, config: DatapathConfig | None = None) -> PackedBVH:
     return PackedBVH(nlo, nhi, leaf.contiguous(), tris.contiguous())
 
 
-def unpack_bvh(packed: PackedBVH, depth: int) -> BVH4:
+def unpack_bvh(packed: PackedBVH, depth: int, arity: int = 4) -> BVH4:
     """The traversal-relevant part of a :class:`BVH4` back from its packed
-    operands (``leaf_perm`` is not packed; the leaf table stands in)."""
-    n_nodes = num_nodes(depth)
-    leaf = packed.leaf[0, :4**depth]
+    operands, node boxes as f32 (``leaf_perm`` is not packed; the leaf
+    table stands in)."""
+    n_nodes = num_nodes(depth, arity)
+    leaf = packed.leaf[0, :arity**depth]
     t = packed.tris
-    return BVH4(node_lo=packed.nlo[:, :n_nodes].T, node_hi=packed.nhi[:, :n_nodes].T,
+    f32 = torch.float32
+    return BVH4(node_lo=packed.nlo[:, :n_nodes].T.to(f32),
+                node_hi=packed.nhi[:, :n_nodes].T.to(f32),
                 leaf_tri=leaf, triangles=Triangle(t[0:3].T, t[3:6].T, t[6:9].T),
                 leaf_perm=leaf)
 
@@ -122,9 +135,11 @@ def traverse_packed(packed: PackedBVH, rays: Ray, depth: int, *,
                     max_rounds: int | None = None,
                     config: DatapathConfig | None = None) -> WavefrontRecord:
     """Traverse a ray batch through the fused kernel on pre-packed tree
-    operands.  Same contract as ``trace_wavefront``, whose record it
-    returns bit for bit.  ``rounds`` is ``max(quadbox_jobs)``: a ray is
-    active from round 0 for exactly ``quadbox_jobs`` consecutive rounds."""
+    operands (:func:`pack_bvh` under the same ``config``).  Same contract
+    as ``trace_wavefront``, whose record it returns bit for bit, at every
+    arity, box dtype and stack size.  ``rounds`` is ``max(quadbox_jobs)``:
+    a ray is active from round 0 for exactly ``quadbox_jobs`` consecutive
+    rounds."""
     if ray_type not in RAY_TYPES:
         raise ValueError(f"ray_type must be one of {RAY_TYPES}, got {ray_type!r}")
     config = resolve_config(config)
@@ -138,30 +153,37 @@ def traverse_packed(packed: PackedBVH, rays: Ray, depth: int, *,
         return _empty_record(device)
     n_pad = ceil_to(n, LANES)
     ray_op = pack_rays(rays, n_pad)
+    arity = config.arity
     if not ray_op.is_cuda:
-        return trace_wavefront(unpack_bvh(packed, depth), unpack_rays(ray_op, n),
+        return trace_wavefront(unpack_bvh(packed, depth, arity), unpack_rays(ray_op, n),
                                depth, ray_type=ray_type, t_min=t_min,
                                max_rounds=max_rounds, config=config)
 
     f32, i32 = torch.float32, torch.int32
+    box_dtype = config.packed_box_dtype
     nodes_pad, leaf_pad, tri_pad = (packed.nlo.shape[1], packed.leaf.shape[1],
                                     packed.tris.shape[1])
     ptr_rays = nvcc.check_cuda("rays", ray_op, f32, (N_RAY_ROWS, n_pad))
-    ptr_nlo = nvcc.check_cuda("nlo", packed.nlo, f32, (3, nodes_pad))
-    ptr_nhi = nvcc.check_cuda("nhi", packed.nhi, f32, (3, nodes_pad))
+    ptr_nlo = nvcc.check_cuda("nlo", packed.nlo, box_dtype, (3, nodes_pad))
+    ptr_nhi = nvcc.check_cuda("nhi", packed.nhi, box_dtype, (3, nodes_pad))
     ptr_leaf = nvcc.check_cuda("leaf", packed.leaf, i32, (1, leaf_pad))
     ptr_tris = nvcc.check_cuda("tris", packed.tris, f32, (9, tri_pad))
-    if nodes_pad < num_nodes(depth) or leaf_pad < 4**depth:
-        raise ValueError(f"packed tree too small for depth {depth}")
+    if nodes_pad < num_nodes(depth, arity) or leaf_pad < arity**depth:
+        raise ValueError(f"packed tree too small for depth {depth} at arity {arity}")
     t = torch.empty((n,), dtype=f32, device=device)
     tri = torch.empty((n,), dtype=i32, device=device)
     qb = torch.empty((n,), dtype=i32, device=device)
     ntri = torch.empty((n,), dtype=i32, device=device)
     ovf = torch.empty((n,), dtype=i32, device=device)
+    # a stack deeper than the kernel's local array lives in device scratch
+    scratch = (torch.empty((config.stack_size, n), dtype=i32, device=device)
+               if config.stack_size > LOCAL_STACK else None)
     nvcc.launch("rayflex_traverse", ptr_rays, n_pad, n, ptr_nlo, ptr_nhi,
-                nodes_pad, ptr_leaf, 4**depth, ptr_tris, tri_pad,
-                level_offset(depth - 1), level_offset(depth), int(max_rounds),
-                int(ray_type != "closest"), float(t_min), config.stack_size,
+                nodes_pad, ptr_leaf, arity**depth, ptr_tris, tri_pad,
+                level_offset(depth - 1, arity), level_offset(depth, arity),
+                int(max_rounds), int(ray_type != "closest"), float(t_min),
+                config.stack_size, arity, int(box_dtype == torch.bfloat16),
+                0 if scratch is None else scratch.data_ptr(),
                 t.data_ptr(), tri.data_ptr(), qb.data_ptr(), ntri.data_ptr(),
                 ovf.data_ptr())
     return WavefrontRecord(t=t, tri_index=tri, hit=tri >= 0, quadbox_jobs=qb,

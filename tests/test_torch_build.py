@@ -143,16 +143,23 @@ def test_clustered_soup_same_numbers_from_same_seed():
 
 
 def test_registry_and_config_guards():
-    assert "lbvh" in builders()
+    assert {"lbvh", "sah"} <= set(builders())
     tt = _soups(_random_soup(3, 20))[1]
     with pytest.raises(ValueError, match="unknown builder"):
-        build(tt, "sah")
+        build(tt, "median")
     with pytest.raises(ValueError, match="leaf slots"):
         build(tt, depth=1)
+    # the guards that remain are the reference's own (DatapathConfig.validate)
+    for bad, field in ((dict(arity=3), "arity"), (dict(stack_size=0), "stack_size"),
+                       (dict(precision="fp16"), "precision"),
+                       (dict(node_format="zip"), "node_format")):
+        with pytest.raises(ValueError, match=field):
+            build(tt, config=tbvh.DatapathConfig(**bad))
+        with pytest.raises(ValueError, match=field):
+            jbvh.DatapathConfig(**bad).validate()
     for cfg in (tbvh.DatapathConfig(arity=8), tbvh.DatapathConfig(stack_size=8),
                 tbvh.DatapathConfig(precision="bf16")):
-        with pytest.raises(NotImplementedError):
-            build(tt, config=cfg)
+        assert build(tt, config=cfg).config == cfg
     assert tbvh.DEFAULT_CONFIG.tag == jbvh.DEFAULT_CONFIG.tag
 
     @register_builder("lbvh_twice_for_test")

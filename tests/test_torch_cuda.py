@@ -424,3 +424,88 @@ def test_unified_kernel_signed_zero(cuda):
     got = _unified_bit_equal(opcodes, operands)
     dots = got[0, cols].view(3, LANES)
     assert bool((dots.view(torch.int32) == 0).all())  # +0.0, not -0.0
+
+
+# ---------------------------------------------------------------------------
+# the datapath config twins: arity 8, bf16 node rows, any stack size
+# ---------------------------------------------------------------------------
+
+TWIN_STACKS = [1, 2, 16, 64, 65, 200]
+
+
+def _twin_scene(cuda, tag, stack, builder="lbvh"):
+    from repro_torch.convert import config_from_tag
+    from repro_torch.core.build.quality import clustered_soup
+
+    config = config_from_tag(tag)._replace(stack_size=stack)
+    tri = clustered_soup(np.random.default_rng(21), 64, 64, device=cuda)
+    sc = Scene.from_triangles(tri, builder=builder, config=config, device=cuda)
+    rng = np.random.default_rng(22)
+    aim = tri.a[torch.as_tensor(rng.integers(0, 4096, 3000), device=cuda)]
+    org = torch.as_tensor(rng.uniform(-9, 9, (3000, 3)).astype(np.float32), device=cuda)
+    rays = make_ray(org, aim - org, device=cuda)
+    return sc, rays
+
+
+@pytest.mark.parametrize("stack", TWIN_STACKS)
+@pytest.mark.parametrize("tag,builder", [("bvh8_s64_fp32_fp32", "lbvh"),
+                                         ("bvh4_s64_bf16_fp32", "sah"),
+                                         ("bvh8_s64_bf16_compressed", "sah")])
+def test_fused_kernel_under_config_bit_equal_to_wavefront(cuda, tag, builder, stack):
+    sc, rays = _twin_scene(cuda, tag, stack, builder)
+    packed = pack_bvh(sc.bvh, sc.config)
+    assert packed.nlo.dtype == sc.config.packed_box_dtype
+    before = nvcc.launch_counts().get("traverse", 0)
+    overflowed = False
+    for ray_type in RAY_TYPES:
+        want = trace_wavefront(sc.bvh, rays, sc.depth, ray_type=ray_type, config=sc.config)
+        got = traverse_packed(packed, rays, sc.depth, ray_type=ray_type, config=sc.config)
+        for f in want._fields:
+            assert _bits_equal(getattr(got, f), getattr(want, f)), f"{ray_type}: {f}"
+        overflowed |= bool(want.stack_overflow.any())
+    # the kernel ran every trace (the plain version counts no launch)
+    assert nvcc.launch_counts()["traverse"] == before + len(RAY_TYPES)
+    if stack <= 2:
+        assert overflowed
+    if stack >= 64:  # a BVH8 of depth 4 needs at most 22 slots
+        assert not overflowed
+    eng = sc.engine(chunk_size=1024)
+    closest = trace_wavefront(sc.bvh, rays, sc.depth, config=sc.config)
+    got = eng.trace(rays, backend="cuda")
+    for f in closest._fields:
+        assert _bits_equal(getattr(got, f), getattr(closest, f)), f
+
+
+@pytest.mark.parametrize("stack", [1, 64, 65, 200, 1000])
+def test_traverse_entry_point_takes_every_stack_size(cuda, stack):
+    """``rayflex_traverse`` accepts every stack_size >= 1.  Above 64 the
+    stack lives in device scratch: the C entry point refuses such a stack
+    without scratch (so the local-array variant never serves it), and the
+    wrapper supplies it."""
+    import ctypes
+    sc, rays = _twin_scene(cuda, "bvh4_s64_fp32_fp32", stack)
+    packed = pack_bvh(sc.bvh, sc.config)
+    n = rays.origin.shape[0]
+    ray_op = pack_rays(rays, -(-n // LANES) * LANES)
+    outs = [torch.empty(n, dtype=dt, device=cuda)
+            for dt in (torch.float32, torch.int32, torch.int32, torch.int32, torch.int32)]
+    lib = nvcc.library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(scratch):
+        return lib.rayflex_traverse(
+            ray_op.data_ptr(), ray_op.shape[1], n, packed.nlo.data_ptr(),
+            packed.nhi.data_ptr(), packed.nlo.shape[1], packed.leaf.data_ptr(),
+            4**sc.depth, packed.tris.data_ptr(), packed.tris.shape[1],
+            (4**(sc.depth - 1) - 1) // 3, (4**sc.depth - 1) // 3, (4**sc.depth - 1) // 3,
+            0, ctypes.c_float(0.0), stack, 4, 0, scratch, *(o.data_ptr() for o in outs),
+            stream)
+
+    scratch = torch.empty((stack, n), dtype=torch.int32, device=cuda)
+    assert call(scratch.data_ptr()) == 0
+    assert call(None) == (0 if stack <= 64 else 1)  # 1: cudaErrorInvalidValue
+    torch.cuda.synchronize()
+    want = trace_wavefront(sc.bvh, rays, sc.depth, config=sc.config)
+    got = traverse_packed(packed, rays, sc.depth, config=sc.config)
+    for f in want._fields:
+        assert _bits_equal(getattr(got, f), getattr(want, f)), f

@@ -37,7 +37,7 @@ from repro.core.build.points import build_point_bvh as jbuild_point_bvh
 from repro.core.datapath import point_box_test as jpoint_box_test
 from repro.core.knn import squared_norms as jsquared_norms
 from repro.kernels.traverse import neighbor_fused as jneighbor_fused
-from repro_torch.api import PointCloudScene, neighbor_backends
+from repro_torch.api import DatapathConfig, PointCloudScene, neighbor_backends
 from repro_torch.convert import point_cloud_from_numpy
 from repro_torch.core import neighbor as tn
 from repro_torch.core.build.points import build_point_bvh
@@ -193,8 +193,10 @@ def test_build_point_bvh_bit_equal_to_reference(cloud):
 
 
 def test_build_point_bvh_rejects():
-    with pytest.raises(NotImplementedError, match="sah"):
-        build_point_bvh(_t(_pts(10)), builder="sah")
+    # "sah" is a registered core now; a wider tree is what clouds refuse
+    assert build_point_bvh(_t(_pts(10)), builder="sah").builder == "sah"
+    with pytest.raises(ValueError, match="4-wide"):
+        build_point_bvh(_t(_pts(10)), config=DatapathConfig(arity=8))
     with pytest.raises(ValueError, match="unknown point builder"):
         build_point_bvh(_t(_pts(10)), builder="median")
     with pytest.raises(ValueError, match=r"\(N, 3\)"):

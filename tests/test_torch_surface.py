@@ -78,8 +78,16 @@ def test_per_ray_backend_matches_reference_and_wavefront():
             engine.trace(rays, backend="per_ray", **bad)
     with pytest.raises(ValueError, match="supports ray types"):
         engine.trace(rays, "any", backend="per_ray")
-    with pytest.raises(NotImplementedError):
-        trace_rays(scene.bvh, rays, scene.depth, DatapathConfig(arity=8))
+    # under arity 8 the oracle walks a BVH8 scene as the reference's does
+    wide = Scene.from_triangles(tris, device="cpu", config=DatapathConfig(arity=8))
+    jwide = JScene.from_triangles(tris, config=JDatapathConfig(arity=8))
+    got8 = trace_rays(wide.bvh, rays, wide.depth, DatapathConfig(arity=8))
+    want8 = jtrace_rays(jwide.bvh, jr, jwide.depth, JDatapathConfig(arity=8))
+    rounds = lambda rec: rec.quadbox_jobs.max()  # noqa: E731
+    _assert_record(_np(TraceResult(*got8, rounds(got8))),
+                   _np(TraceResult(*want8, rounds(want8))), "per_ray bvh8", tris, rays)
+    _assert_same(wide.engine().trace(rays, backend="per_ray"),
+                 wide.engine().trace(rays, backend="wavefront"), "per_ray vs wavefront bvh8")
 
 
 @pytest.mark.parametrize("backend", ["wavefront", "cuda", None])
