@@ -26,7 +26,15 @@ Phases (any failure exits non-zero and prints no result line):
    traces are held against ``trace_wavefront`` on the card on every ray;
 6. each kernel timed at the main path's shapes on the main path's own
    inputs, its output held bit-equal to its plain version's on those
-   inputs;
+   inputs.  The traversal kernel's bound (distinct bytes against
+   job-counted operations, box tests at inner pops only) with its share at
+   the unfused f32 rate and the 32 B sectors its jobs gather; its closest,
+   any and shadow rays in the caller's order and in ``ray_order``'s
+   schedule, the sort inside the timed call; and the kernel's variants of
+   ``TRAV_VARIANTS`` (``traverse.cu`` rebuilt alone under other register
+   caps, and without the warp vote) beside its own, each record bit-equal
+   to ``trace_wavefront`` (phase 11 does the same for the LBVH BVH8 f32
+   twin);
 7. brute-force vector search at the shapes of two public ann-benchmarks
    sets, synthesised from a seed as clustered Gaussians:
    ``sift-128-euclidean`` (1,000,000 x 128, 10,000 queries; ``nearest``
@@ -102,9 +110,10 @@ Phases (any failure exits non-zero and prints no result line):
     under every golden config on the card bit-equal to its build on the
     CPU, and its refit to its build (the signed-zero order of the box
     reductions).  Printed per config: build, trace, kernel and plain ms,
-    jobs per ray, rounds, overflowed rays, packed and analytic node bytes,
-    the kernel's bound on both (distinct bytes against job-counted
-    operations) and the sectors its jobs gather;
+    jobs per ray, rounds, overflowed rays, the packed child records' and
+    leaf slots' bytes, the kernel's bound (distinct bytes against
+    job-counted operations; also with the codec's analytic box bytes), its
+    share at the unfused f32 rate and the sectors its jobs gather;
 
 then one JSON ``kernels`` line (launches on each kernel's path, times,
 errors, bounds, library times) and the ``{"ok": true, "device": ...}``
@@ -158,10 +167,18 @@ RAYBOX_BYTES, RAYBOX_OPS = (9 + 24 + 12) * 4, 4 * (6 + 6 + 6 + 1) + 5
 #: OpTriangle reads org, shear, k (i32) and three vertices, 6 rows of 3
 #: words, and writes t_num, t_denom and hit
 RAYTRI_BYTES, RAYTRI_OPS = (18 + 3) * 4, 9 + 9 + 6 + 6 + 3 + 3 + 4 + 5
-#: fused kernel: a ray reads 16 operand floats and writes 5 words; a
-#: triangle job gathers a leaf slot and 9 triangle rows, one 32 B sector
-#: each (the gathered-sector metric, not the bound)
-TRAV_RAY_BYTES, TRAV_TRI_SECTORS, SECTOR_BYTES = 84, 10, 32
+#: fused kernel: a ray reads 16 operand floats and writes 5 words; its
+#: jobs gather 32 B sectors of the packed tree (the gathered-sector
+#: metric, not the bound)
+TRAV_RAY_BYTES, SECTOR_BYTES = 84, 32
+#: f32 operations a second without FMA: the kernels build with
+#: -fmad=false, and the 67 TFLOP/s peak counts an FMA as two
+F32_UNFUSED_OPS_PER_S = F32_OPS_PER_S / 2
+#: the traversal kernel's variants timed beside its own: register caps
+#: (blocks of 128 threads resident on an SM) and the loop without the
+#: warp vote, each built from ``traverse.cu`` with these flags
+TRAV_VARIANTS = tuple((f"{b} blocks", f"-DRAYFLEX_TRAVERSE_MIN_BLOCKS={b}")
+                      for b in (4, 5, 6, 7, 8)) + (("no vote", "-DRAYFLEX_TRAVERSE_VOTE=0"),)
 #: f32 ops of a triangle job inside traversal: the unit, the divide, and
 #: the 4 compares of the commit
 TRAV_TRI_OPS = RAYTRI_OPS + 1 + 4
@@ -245,35 +262,67 @@ def bound_ms(n_bytes: float, n_ops: float) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def traverse_ops(sum_qb: float, sum_tri: float, arity: int) -> float:
+    """The traversal's job-counted f32 operations: the box test and its sort
+    at inner pops only (no record depends on a leaf parent's box test, and
+    the kernel runs none), and every triangle job."""
+    inner_pops = sum_qb - sum_tri / arity
+    return inner_pops * (arity * 19 + SORT_COMPARATORS[arity]) + sum_tri * TRAV_TRI_OPS
+
+
 def traverse_bound(packed, n_rays: int, sum_qb: float, sum_tri: float, arity: int,
                    node_bytes: float | None = None) -> tuple[float, str]:
     """The fused kernel's bound: its distinct bytes (each ray's operands
-    read and record written once, the packed tree -- node rows, leaf
-    table, triangles -- read once) against its job-counted operations.
-    ``node_bytes`` stands in for the packed node rows' bytes (a codec's
-    analytic size)."""
-    rows = sum(t.numel() * t.element_size() for t in (packed.nlo, packed.nhi))
-    rest = sum(t.numel() * t.element_size() for t in (packed.leaf, packed.tris))
-    n_bytes = n_rays * TRAV_RAY_BYTES + (rows if node_bytes is None else node_bytes) + rest
-    ops = sum_qb * (arity * 19 + SORT_COMPARATORS[arity]) + sum_tri * TRAV_TRI_OPS
-    return bound_ms(n_bytes, ops)
+    read and record written once, the packed tree -- child records and leaf
+    slots -- read once) against :func:`traverse_ops`.  ``node_bytes``
+    stands in for the child records' bytes (a codec's analytic size)."""
+    kids = packed.kids.numel() * packed.kids.element_size()
+    slots = packed.slots.numel() * packed.slots.element_size()
+    n_bytes = n_rays * TRAV_RAY_BYTES + (kids if node_bytes is None else node_bytes) + slots
+    return bound_ms(n_bytes, traverse_ops(sum_qb, sum_tri, arity))
 
 
-def traverse_gathered(packed, depth: int, n_rays: int, sum_qb: float, sum_tri: float,
-                      arity: int) -> tuple[float, float]:
-    """32 B sectors a box job gathers (the mean over the tree's internal
-    nodes: each of the 6 node rows holds a node's ``arity`` child bounds
-    contiguously, one sector or two where they cross a boundary), and the
-    bytes of every job's sectors plus the rays' own: traffic before L1 / L2
-    serve any of it, printed beside the bound and never as it."""
-    from repro_torch.core.bvh import level_offset
-    e = packed.nlo.element_size()
-    start = (arity * np.arange(level_offset(depth, arity), dtype=np.int64) + 1) * e
-    last = start + arity * e - 1
-    box_sectors = 6.0 * float((last // SECTOR_BYTES - start // SECTOR_BYTES + 1).mean())
+def sector_span(ptr: int, stride: int, count: int) -> float:
+    """Mean 32 B sectors a record of ``stride`` bytes touches, over records
+    0 .. count - 1 of an array at address ``ptr``."""
+    start = ptr % SECTOR_BYTES + stride * np.arange(count, dtype=np.int64)
+    last = start + stride - 1
+    return float((last // SECTOR_BYTES - start // SECTOR_BYTES + 1).mean())
+
+
+def traverse_gathered(packed, n_rays: int, sum_qb: float, sum_tri: float,
+                      arity: int) -> tuple[float, float, float]:
+    """32 B sectors an inner pop's box job gathers (its child record; a
+    leaf parent's box job gathers none), sectors a triangle job gathers (a
+    leaf parent's slots, over its ``arity`` jobs), and the bytes of every
+    job's sectors plus the rays' own: traffic before L1 / L2 serve any of
+    it, printed beside the bound and never as it."""
+    kids, slots = packed.kids, packed.slots
+    rec = kids.shape[1] * kids.element_size()
+    box = sector_span(kids.data_ptr(), rec, kids.shape[0]) if kids.shape[0] else 0.0
+    group = arity * slots.shape[1] * slots.element_size()
+    tri = sector_span(slots.data_ptr(), group, slots.shape[0] // arity) / arity
     n_bytes = n_rays * TRAV_RAY_BYTES + SECTOR_BYTES * (
-        sum_qb * box_sectors + sum_tri * TRAV_TRI_SECTORS)
-    return box_sectors, n_bytes
+        (sum_qb - sum_tri / arity) * box + sum_tri * tri)
+    return box, tri, n_bytes
+
+
+def traverse_metrics(packed, n_rays: int, sum_qb: float, sum_tri: float, arity: int,
+                     kern_ms: float) -> str:
+    """The kernel's bound, its share at the unfused f32 rate and its
+    gathered sectors, as one line's tail."""
+    bound = traverse_bound(packed, n_rays, sum_qb, sum_tri, arity)
+    ops = traverse_ops(sum_qb, sum_tri, arity)
+    unfused_ms = ops / F32_UNFUSED_OPS_PER_S * 1e3
+    box, tri, gathered = traverse_gathered(packed, n_rays, sum_qb, sum_tri, arity)
+    return (f"bound {bound[0]:.4f} ms ({bound[1]}; distinct bytes against "
+            f"{ops:.4g} job-counted operations, box tests at inner pops only): "
+            f"{bound[0] / kern_ms:.1%} of its speed; {unfused_ms:.4f} ms at "
+            f"{F32_UNFUSED_OPS_PER_S:.3g} unfused f32 operations/s: "
+            f"{unfused_ms / kern_ms:.1%}; gathered sectors {box:.3f} an inner "
+            f"pop's box job, 0 a leaf parent's, {tri:.3f} a triangle job: "
+            f"{gathered / 1e9:.3f} GB, {gathered / HBM_BYTES_PER_S * 1e3:.3f} ms at "
+            f"the HBM rate (traffic before L1 / L2, not the bound)")
 
 
 def distance_bounds(m: int, n: int, d: int, euclidean: bool):
@@ -755,14 +804,13 @@ def phase_main_path(torch):
     sum_qb = float(rec_k.quadbox_jobs.double().sum())
     sum_tri = float(rec_k.triangle_jobs.double().sum())
     trav_bound = traverse_bound(packed, n_rays, sum_qb, sum_tri, 4)
-    box_sectors, gathered = traverse_gathered(packed, scene.depth, n_rays, sum_qb,
-                                              sum_tri, 4)
-    say(f"phase 6 traverse: {n_rays} primary rays; kernel {trav_ms:.3f} ms, "
-        f"bound {trav_bound[0]:.4f} ms ({trav_bound[1]}; distinct bytes against "
-        f"job-counted operations); gathered sectors {box_sectors:.3f} a box job, "
-        f"{TRAV_TRI_SECTORS} a triangle job: {gathered / 1e9:.3f} GB, "
-        f"{gathered / HBM_BYTES_PER_S * 1e3:.3f} ms at the HBM rate (traffic "
-        f"before L1 / L2, not the bound)")
+    gathered = traverse_gathered(packed, n_rays, sum_qb, sum_tri, 4)[2]
+    say(f"phase 6 traverse: {n_rays} primary rays; kernel {trav_ms:.3f} ms; "
+        + traverse_metrics(packed, n_rays, sum_qb, sum_tri, 4, trav_ms))
+    any_ref = trace_wavefront(bvh, primary, scene.depth, ray_type="any")
+    traverse_schedules(torch, packed, scene.depth, (
+        ("closest", primary, rec_p), ("any", primary, any_ref), ("shadow", shadow, sh_ref)))
+    traverse_variants(torch, packed, primary, scene.depth, rec_p)
 
     f32, i32 = torch.float32, torch.int32
     rb_args = ray_box_operands(primary, fr["emitters"])
@@ -810,6 +858,76 @@ def phase_main_path(torch):
     rows[-1]["gathered_ms"] = gathered / HBM_BYTES_PER_S * 1e3
     stage_jobs = {k: fr[k] for k in ("primary", "emitters", "to_tri", "corners")}
     return rows, stage_jobs
+
+
+def traverse_schedules(torch, packed, depth: int, cases) -> None:
+    """The traversal kernel in the caller's order and in ``ray_order``'s
+    schedule (the sort inside the timed call), for each (ray type, rays,
+    plain record) of ``cases``, on the main path's tree; every record
+    bit-equal to the plain version's.  The wrapper serves every type in
+    the caller's order, which wins here."""
+    from repro_torch.kernels.common import LANES, ceil_to
+    from repro_torch.kernels.traverse import pack_rays, ray_order, traverse_launch
+
+    for ray_type, rays, want in cases:
+        n = rays.origin.shape[0]
+
+        def run(schedule):
+            order = ray_order(rays) if schedule else None
+            return traverse_launch(packed, pack_rays(rays, ceil_to(n, LANES)), order, n,
+                                   depth, ray_type=ray_type)
+
+        caller_ms, rec_c = event_ms(lambda: run(False))
+        zorder_ms, rec_z = event_ms(lambda: run(True))
+        sort_ms, _ = event_ms(lambda: ray_order(rays))
+        same_bits(f"phase 6 {ray_type}: kernel in the caller's order vs trace_wavefront",
+                  rec_c, want)
+        same_bits(f"phase 6 {ray_type}: kernel in ray_order's schedule vs trace_wavefront",
+                  rec_z, want)
+        say(f"phase 6 traverse schedule, {ray_type} ({n} rays): caller's order "
+            f"{caller_ms:.3f} ms, ray_order {zorder_ms:.3f} ms (its sort {sort_ms:.3f} ms "
+            f"inside; median of {TIMED_REPS}, each launch with its pack_rays): "
+            f"{caller_ms / zorder_ms:.3f}x")
+
+
+def traverse_variants(torch, packed, rays, depth: int, want, config=None) -> None:
+    """The local-stack traversal kernel of ``config``'s arity and box type
+    (closest, the caller's order) in each build of :data:`TRAV_VARIANTS`, a
+    library of ``traverse.cu`` alone, timed beside the main library's
+    kernel as median of 5 event windows around one call of the C entry
+    point; every record bit-equal to the plain version's."""
+    from repro_torch.core.bvh import level_offset, resolve_config
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.common import LANES, ceil_to
+    from repro_torch.kernels.traverse import pack_rays, traverse_call
+
+    config = resolve_config(config)
+    box = "f32" if config.packed_box_dtype == torch.float32 else "bf16"
+    variant = f"[bvh{config.arity} {box} rows, local stack]"
+    n = rays.origin.shape[0]
+    ray_op = pack_rays(rays, ceil_to(n, LANES))
+    stream = torch.cuda.current_stream().cuda_stream
+    libs = [("the source's defaults", nvcc.library(), None)]
+    for label, flag in TRAV_VARIANTS:
+        path = nvcc.build((flag,), ("traverse.cu",))
+        log = nvcc.build_log.get(f"traverse.cu {flag}")
+        libs.append((f"{label} ({flag})", nvcc.load(path, ["rayflex_traverse"]), log))
+    for label, lib, log in libs:
+        call = traverse_call(packed, ray_op, None, n, depth, ray_type="closest", t_min=0.0,
+                             max_rounds=level_offset(depth, config.arity), config=config)
+
+        def launch():
+            err = lib.rayflex_traverse(*call.args, stream)
+            if err != 0:
+                fail(f"rayflex_traverse ({label}) returned CUDA error {err}")
+
+        ms, _ = event_ms(launch)
+        same_bits(f"traverse kernel {variant}, {label}, vs trace_wavefront",
+                  call.record(), want)
+        regs = ("; ".join(line for lab, line in traverse_ptxas(log) if lab == variant)
+                if log else "ptxas: as phase 1 reports")
+        say(f"traverse variant {variant}, {label}: kernel {ms:.3f} ms "
+            f"(median of {TIMED_REPS}, {n} closest rays); {regs}")
 
 
 def kernel_row(name, source, replaces, launches, ms, plain_ms, err, bound,
@@ -1490,6 +1608,7 @@ def phase_dynamic(torch):
     from repro_torch.core.wavefront import trace_wavefront
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.distance import norms_plain
+    from repro_torch.kernels.traverse import lay_out_rows, pack_bvh_rows
 
     tri = clustered_soup(np.random.default_rng(SEED), N_CLUSTERS, PER_CLUSTER, device="cuda")
     vel = torch.as_tensor(np.random.default_rng(ANIM_SEED).normal(
@@ -1677,14 +1796,17 @@ def phase_dynamic(torch):
         torch.cuda.synchronize()
         first_trace.append((time.perf_counter() - t0) * 1e3)
     steady_ms = wall_ms(lambda: engine.trace(primary))
+    rows_ms, rows = event_ms(lambda: pack_bvh_rows(scene.bvh))
+    layout_ms, _ = event_ms(lambda: lay_out_rows(rows, scene.depth))
     c_refit_ms = wall_ms(lambda: cloud.refit(moved_pts))
     c_build_ms = wall_ms(lambda: PointCloudScene.from_points(moved_pts, device="cuda"))
     say(f"phase 10 times (median of {TIMED_REPS}): Scene.refit {refit_ms:.3f} ms vs "
         f"Scene.from_triangles {build_ms:.3f} ms ({N_CLUSTERS * PER_CLUSTER} triangles); "
         f"first trace after a refit (re-pack included) "
         f"{statistics.median(first_trace):.3f} ms vs steady {steady_ms:.3f} ms "
-        f"({n_rays} rays); PointCloudScene.refit {c_refit_ms:.3f} ms vs from_points "
-        f"{c_build_ms:.3f} ms ({n_pts} points)")
+        f"({n_rays} rays; the re-pack alone: the rows {rows_ms:.3f} ms and their "
+        f"layout {layout_ms:.3f} ms, device time); PointCloudScene.refit "
+        f"{c_refit_ms:.3f} ms vs from_points {c_build_ms:.3f} ms ({n_pts} points)")
 
 
 # ---------------------------------------------------------------------------
@@ -1738,8 +1860,8 @@ def phase_twins(torch):
 
         # ---- the kernel against its plain version, every field --------------
         packed = pack_bvh(scene.bvh, config)
-        if packed.nlo.dtype != config.packed_box_dtype:
-            fail(f"phase 11 {label}: node rows packed as {packed.nlo.dtype}")
+        if packed.kids.dtype != config.packed_box_dtype:
+            fail(f"phase 11 {label}: child records packed as {packed.kids.dtype}")
         kern_ms, rec_k = event_ms(lambda: traverse_packed(packed, primary, scene.depth,
                                                           config=config))
         plain_ms, rec_p = event_ms(lambda: trace_wavefront(scene.bvh, primary, scene.depth,
@@ -1748,6 +1870,8 @@ def phase_twins(torch):
                         f"rays", rec_k, rec_p)
         same_bits(f"phase 11 {label}: engine closest trace vs trace_wavefront",
                   closest, rec_p)
+        if (builder, tag) == ("lbvh", "bvh8_s64_fp32_fp32"):
+            traverse_variants(torch, packed, primary, scene.depth, rec_p, config)
         for rtype, rays, rec in (("any", primary, anyhit), ("shadow", shadow_rays, shadow)):
             same_bits(f"phase 11 {label}: engine {rtype} trace vs trace_wavefront, all "
                       f"{rays.origin.shape[0]} rays", rec,
@@ -1762,27 +1886,26 @@ def phase_twins(torch):
         sum_tri = float(rec_k.triangle_jobs.double().sum())
         arity = config.arity
         n_nodes = scene.bvh.node_lo.shape[0]
+        n_kids = packed.kids.shape[0] * arity  # the nodes whose boxes a record holds
         bound = traverse_bound(packed, n_rays, sum_qb, sum_tri, arity)
         bound_analytic = traverse_bound(packed, n_rays, sum_qb, sum_tri, arity,
-                                        node_bytes=n_nodes * config.box_bytes_per_node)
-        box_sectors, gathered = traverse_gathered(packed, scene.depth, n_rays, sum_qb,
-                                                  sum_tri, arity)
-        packed_bytes = 2 * packed.nlo.numel() * packed.nlo.element_size()
+                                        node_bytes=n_kids * config.box_bytes_per_node)
+        gathered = traverse_gathered(packed, n_rays, sum_qb, sum_tri, arity)[2]
+        kids_bytes = packed.kids.numel() * packed.kids.element_size()
+        slots_bytes = packed.slots.numel() * packed.slots.element_size()
         n_ovf = int(closest.stack_overflow.sum())
-        say(f"phase 11 {label}: depth {scene.depth}, {n_nodes} nodes, packed node rows "
-            f"{packed_bytes / 1e6:.3f} MB ({packed.nlo.dtype}; analytic "
-            f"{n_nodes * config.box_bytes_per_node / 1e6:.3f} MB at "
-            f"{config.box_bytes_per_node} B a node); build {build_ms:.3f} ms, closest "
-            f"trace {trace_ms:.3f} ms (median of {TIMED_REPS}), kernel {kern_ms:.3f} ms, "
-            f"plain {plain_ms:.3f} ms; box / triangle jobs per ray "
-            f"{sum_qb / n_rays:.3f} / {sum_tri / n_rays:.3f}; rounds {int(rec_k.rounds)}; "
-            f"overflowed rays {n_ovf} closest, {int(anyhit.stack_overflow.sum())} any, "
-            f"{int(shadow.stack_overflow.sum())} shadow; bound {bound[0]:.4f} ms "
-            f"({bound[1]}; distinct bytes with the packed rows) / "
-            f"{bound_analytic[0]:.4f} ms ({bound_analytic[1]}; with the analytic node "
-            f"bytes); gathered sectors {box_sectors:.3f} a box job: "
-            f"{gathered / 1e9:.3f} GB, {gathered / HBM_BYTES_PER_S * 1e3:.3f} ms at the "
-            f"HBM rate (not the bound); launches {launches}")
+        say(f"phase 11 {label}: depth {scene.depth}, {n_nodes} nodes; child records "
+            f"{kids_bytes / 1e6:.3f} MB ({packed.kids.dtype}, {n_kids} boxes; analytic "
+            f"{n_kids * config.box_bytes_per_node / 1e6:.3f} MB at "
+            f"{config.box_bytes_per_node} B a box), leaf slots {slots_bytes / 1e6:.3f} MB; "
+            f"build {build_ms:.3f} ms, closest trace {trace_ms:.3f} ms (median of "
+            f"{TIMED_REPS}), kernel {kern_ms:.3f} ms, plain {plain_ms:.3f} ms; box / "
+            f"triangle jobs per ray {sum_qb / n_rays:.3f} / {sum_tri / n_rays:.3f}; rounds "
+            f"{int(rec_k.rounds)}; overflowed rays {n_ovf} closest, "
+            f"{int(anyhit.stack_overflow.sum())} any, {int(shadow.stack_overflow.sum())} "
+            f"shadow; with the analytic box bytes the bound is {bound_analytic[0]:.4f} ms "
+            f"({bound_analytic[1]}); launches {launches}; "
+            + traverse_metrics(packed, n_rays, sum_qb, sum_tri, arity, kern_ms))
         row = kernel_row(f"traverse {label}", "traverse.cu",
                          "src/repro/kernels/traverse.py:95", {f"traverse {label}": launches},
                          kern_ms, plain_ms, err, bound)

@@ -1,31 +1,53 @@
 // The fused closest / any / shadow traversal kernel: one thread per ray,
 // running the ray's whole pop -> box test -> OpTriangle -> commit -> push
-// loop to its end, under any DatapathConfig: arity 4 or 8, node-box rows
-// in f32 or bf16, any stack size.
+// loop to its end, under any DatapathConfig: arity 4 or 8, node boxes in
+// f32 or bf16, any stack size (8 variants: arity x box type x stack home).
 //
 // Replaces: repro/kernels/traverse.py, _traverse_kernel (the Pallas TPU
 // kernel, where one 128-lane tile steps its rays in lockstep).
-// What bounds it on the H100: bytes, and latency before bytes.  Each round
-// a ray reads `arity` child boxes (24 B each in f32, 12 B in bf16) and, at
-// a leaf parent, `arity` leaf slots and triangles (40 B each), with about
-// 20 and 45 f32 operations per box and triangle: well under one operation
-// per byte.  The reads are data-dependent gathers, so a warp whose rays
-// diverge issues up to 32 separate segments per load, and each round
-// waits on the previous round's pop.
-// What the design does about it: the ray's registers, its best hit and
-// its counters live in registers for the whole loop.  A stack of up to 64
-// entries is a thread-local array (local memory, cached in L1) indexed by
-// the stack pointer, with the config's stack size as the runtime limit; a
-// deeper stack is a column of per-thread device scratch laid out slot-major
-// (slot i of ray r at i * n + r), so a warp's pushes to one depth are
-// contiguous.  Nothing is written back until the ray retires: one read of
-// the ray and one write of its record, so HBM traffic is the gathers alone,
-// and the 50 MB L2 holds the upper levels of the tree that every ray
-// visits.  bf16 node rows halve the box bytes and upcast exactly
-// (__bfloat162float), since the codecs place every bound on the bf16 grid.
-// The BVH is read through the read-only path (__restrict__ const).  Rays of
-// a block are neighbours in the caller's batch, which for camera rays are
-// neighbouring pixels that walk similar paths.
+// What bounds it on the H100: the operations its jobs count set the bound
+// (about 20 f32 operations a child box and 50 a triangle job, against a few
+// hundred MB of distinct bytes), but what holds it is latency: every pop
+// gathers a data-dependent record and waits on the pop before it, a warp
+// runs as long as its slowest ray, and a warp whose rays disagree on the
+// kind of node they pop runs both kinds.
+// What the design does about it:
+//   * the tree's layout (kernels/traverse.py, pack_bvh): each node above
+//     the leaf parents holds its ARITY children's boxes as one record, rows
+//     lo.x | lo.y | lo.z | hi.x | hi.y | hi.z of ARITY bounds (96 B in f32
+//     at BVH4, 48 B in bf16, 192 B in f32 at BVH8), read with 16 B vector
+//     loads; no leaf box is stored, and a leaf-parent pop counts its box job
+//     and loads nothing for it (the plain version reads the box test only
+//     at inner nodes, core/wavefront.py); each leaf slot holds its
+//     triangle's 9 floats and its index (-1: empty) in three 16 B words, in
+//     leaf-slot order, so a triangle job is 3 vector loads with no
+//     dependent index load.  bf16 bounds upcast exactly (a shift of the
+//     16 bits, as __bfloat162float does), since the codecs place every
+//     bound the kernel reads on the bf16 grid;
+//   * a short dependent chain per pop: the stack top stays in a register
+//     (a pop after a push waits on no load; the stack is read only when a
+//     pop pushes nothing), so a node's record loads issue as soon as the
+//     step starts.  A stack of up to 64 entries is a thread-local array
+//     (local memory, cached in L1) with the config's stack size as the
+//     runtime limit; a deeper one is a column of per-thread device scratch
+//     laid out slot-major (slot i of launch position r at i * n + r), so a
+//     warp's accesses to one depth coalesce.  The ray's registers, best hit
+//     and counters stay in registers; nothing is written before the ray
+//     retires.  __launch_bounds__ caps the registers so that
+//     min_blocks(ARITY) blocks of 128 threads stay resident, spill-free;
+//   * one branch per warp step: the loop is warp-uniform, and each step
+//     runs the branch (inner node or leaf parent) that more of the warp's
+//     active lanes have on top (a vote); the other lanes wait one step.  A
+//     lane always pops its own top, so each ray's sequence of pops, and
+//     every counter, is the plain version's.  RAYFLEX_TRAVERSE_VOTE=0
+//     builds the loop without the vote, which chip_smoke.py times beside
+//     it (slower), as it times other register caps (RAYFLEX_TRAVERSE_MIN_BLOCKS);
+//   * the schedule: the launcher may pass a permutation (ray_order in
+//     kernels/traverse.py: a Z-order of origin and direction); thread r then
+//     serves ray order[r] and writes that ray's column, so a warp holds rays
+//     that walk similar paths.  On clustered-1M's camera rays that makes the
+//     kernel ~13% faster, but the sort costs more than it saves, so the
+//     wrapper passes none (chip_smoke.py phase 6 times both).
 //
 // Semantics are the plain version's (core/wavefront.py) exactly: a round
 // adds `arity` to triangle_jobs at every leaf parent even where slots hold
@@ -38,15 +60,70 @@
 
 #include "datapath.cuh"
 
+#ifndef RAYFLEX_TRAVERSE_MIN_BLOCKS
+#define RAYFLEX_TRAVERSE_MIN_BLOCKS 0  // 0: each arity's own default below
+#endif
+#ifndef RAYFLEX_TRAVERSE_VOTE
+#define RAYFLEX_TRAVERSE_VOTE 1  // 0: no vote, the measured alternative
+#endif
+
 namespace {
 
 constexpr int kMaxLocalStack = 64;  // deepest stack kept in a local array
+constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kSlotWords = 3;  // 16 B words of a leaf slot: a.xyz b.x | b.yz c.xy | c.z idx
+
+// Blocks of 128 threads each SM keeps resident: the register cap.
+constexpr int min_blocks(int arity) {
+  return RAYFLEX_TRAVERSE_MIN_BLOCKS > 0 ? RAYFLEX_TRAVERSE_MIN_BLOCKS : (arity == 4 ? 7 : 6);
+}
 
 // Ray operand rows (the reference's union layout, (16, n_pad) f32).
 constexpr int kRowOrg = 0, kRowDir = 3, kRowInv = 6, kRowShear = 9, kRowK = 12, kRowExt = 15;
 
-__device__ __forceinline__ float box_f32(float x) { return x; }
-__device__ __forceinline__ float box_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+struct Params {
+  const float* rays;  // (16, n_pad)
+  int n_pad, n;
+  const int* order;    // (n,) the ray each thread serves, or null
+  const uint4* kids;   // (leaf_parent_offset, record words) child records
+  const uint4* slots;  // (arity^depth, 3) leaf slots
+  int leaf_parent_offset, max_rounds, any_hit;
+  float t_min;
+  int stack_size;
+  int* stack_scratch;  // (stack_size, n) when the stack lives in scratch
+  float* t_out;
+  int *tri_out, *qb_out, *ntri_out, *ovf_out;
+};
+
+__device__ __forceinline__ unsigned word(const uint4& v, int j) {
+  return j == 0 ? v.x : (j == 1 ? v.y : (j == 2 ? v.z : v.w));
+}
+
+// A node's child record: rows lo.x | lo.y | lo.z | hi.x | hi.y | hi.z of
+// ARITY bounds each, as f32 or bf16 bits, loaded as 16 B words.
+template <int ARITY, typename BoxT>
+struct ChildRecord {
+  static constexpr int kPerWord = 16 / sizeof(BoxT);  // bounds a 16 B word holds
+  static constexpr int kWords = 6 * ARITY / kPerWord;
+  uint4 w[kWords];
+
+  __device__ __forceinline__ void load(const uint4* __restrict__ kids, int node) {
+    const uint4* p = kids + static_cast<size_t>(node) * kWords;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) w[i] = __ldg(p + i);
+  }
+  // bound e of the record as f32 (bf16: its 16 bits are the f32's high half)
+  __device__ __forceinline__ float at(int e) const {
+    const uint4& v = w[e / kPerWord];
+    if constexpr (kPerWord == 4) {
+      return __uint_as_float(word(v, e % 4));
+    } else {
+      const unsigned u = word(v, (e % 8) / 2);
+      return __uint_as_float((e & 1) ? (u & 0xffff0000u) : (u << 16));
+    }
+  }
+};
 
 // The ray's stack: a local array, or a column of device scratch.
 template <bool kLocal>
@@ -63,202 +140,210 @@ template <>
 struct RayStack<false> {
   int* column;
   int stride;
-  __device__ __forceinline__ RayStack(int* scratch, int r, int n) : column(scratch + r), stride(n) {}
+  __device__ __forceinline__ RayStack(int* scratch, int r, int n)
+      : column(scratch + r), stride(n) {}
   __device__ __forceinline__ int& operator[](int i) {
     return column[static_cast<size_t>(i) * stride];
   }
 };
 
 template <int ARITY, typename BoxT, bool kLocalStack>
-__global__ void traverse_kernel(const float* __restrict__ rays, int n_pad, int n,
-                                const BoxT* __restrict__ nlo, const BoxT* __restrict__ nhi,
-                                int nodes_pad, const int* __restrict__ leaf, int n_leaf,
-                                const float* __restrict__ tris, int tri_pad,
-                                int leaf_parent_offset, int leaf_offset, int max_rounds,
-                                int any_hit, float t_min, int stack_size,
-                                int* __restrict__ stack_scratch,
-                                float* __restrict__ t_out, int* __restrict__ tri_out,
-                                int* __restrict__ qb_out, int* __restrict__ ntri_out,
-                                int* __restrict__ ovf_out) {
+__global__ void __launch_bounds__(kThreads, min_blocks(ARITY)) traverse_kernel(const Params P) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n) return;
+  const bool valid = r < P.n;
+  const int q = valid ? (P.order ? __ldg(P.order + r) : r) : 0;
 
   float org[3], inv[3], shear[3];
-  bool neg[3];
-  int k[3];
+  // kx, ky, kz (0..2) in bits 0-5 and the direction's sign bits in 6-8: one
+  // register for the loop's life, unpacked where a branch needs them
+  unsigned code = 0;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    org[d] = rays[(kRowOrg + d) * n_pad + r];
-    neg[d] = signbit(rays[(kRowDir + d) * n_pad + r]);
-    inv[d] = rays[(kRowInv + d) * n_pad + r];
-    shear[d] = rays[(kRowShear + d) * n_pad + r];
-    k[d] = static_cast<int>(rays[(kRowK + d) * n_pad + r]);
+    org[d] = __ldg(P.rays + (kRowOrg + d) * P.n_pad + q);
+    inv[d] = __ldg(P.rays + (kRowInv + d) * P.n_pad + q);
+    shear[d] = __ldg(P.rays + (kRowShear + d) * P.n_pad + q);
+    const int kd = static_cast<int>(__ldg(P.rays + (kRowK + d) * P.n_pad + q));
+    const bool neg = signbit(__ldg(P.rays + (kRowDir + d) * P.n_pad + q));
+    code |= (static_cast<unsigned>(kd) << (2 * d)) | (static_cast<unsigned>(neg) << (6 + d));
   }
-  const float extent = rays[kRowExt * n_pad + r];
+  const float extent = __ldg(P.rays + kRowExt * P.n_pad + q);
 
-  RayStack<kLocalStack> stack(stack_scratch, r, n);
-  stack[0] = 0;  // root pre-pushed
-  int sp = 1;
+  RayStack<kLocalStack> stack(P.stack_scratch, r, P.n);
+  // stack[sp - 1] whenever sp > 0, kept in a register: after a push it is
+  // the last child pushed, so the next pop needs no load.  The root is
+  // pre-pushed and never stored: it is popped first, before any push.
+  int top = 0, sp = valid ? 1 : 0;
   float t_best = CUDART_INF_F;
   int best_tri = -1, n_qb = 0, n_tri = 0;
   bool overflow = false, done = false;
 
-  while (sp > 0 && !done && n_qb < max_rounds) {
-    const int node = stack[--sp];
-    const bool leaf_parent = node >= leaf_parent_offset;
-    const int base = ARITY * node + 1;
+  for (;;) {  // one warp step; every lane of the warp runs it
+    const bool active = sp > 0 && !done && n_qb < P.max_rounds;
+    const bool leafy = top >= P.leaf_parent_offset;
+#if RAYFLEX_TRAVERSE_VOTE
+    const unsigned act = __ballot_sync(kFull, active);
+    if (act == 0) break;
+    const int n_leafy = __popc(__ballot_sync(kFull, active && leafy));
+    const bool leaf_step = 2 * n_leafy >= __popc(act);  // the vote
+    if (!active || leafy != leaf_step) continue;
+#else
+    if (!active) break;  // each lane its own loop: a warp runs both branches
+#endif
 
-    // ---- one box-test job on the node's ARITY children -------------------
-    float lo[ARITY][3], hi[ARITY][3];
+    const int node = top;
+    --sp;
+    ++n_qb;  // one box-test job, whichever branch
+    bool pushed = false;
+    if (!leafy) {
+      // ---- the box test on the node's ARITY children ---------------------
+      ChildRecord<ARITY, BoxT> rec;
+      rec.load(P.kids, node);
+      float lo[ARITY][3], hi[ARITY][3];
 #pragma unroll
-    for (int b = 0; b < ARITY; ++b) {
+      for (int b = 0; b < ARITY; ++b) {
 #pragma unroll
-      for (int d = 0; d < 3; ++d) {
-        lo[b][d] = box_f32(nlo[d * nodes_pad + base + b]);
-        hi[b][d] = box_f32(nhi[d * nodes_pad + base + b]);
-      }
-    }
-    float tmin[ARITY];
-    int idx[ARITY], hit[ARITY];
-    rayflex::op_box_test<ARITY>(org, inv, neg, lo, hi, tmin, idx, hit);
-    ++n_qb;
-
-    if (leaf_parent) {
-      // ---- ARITY OpTriangle jobs, the external divide, first minimum -----
-      n_tri += ARITY;
-      float best_leaf_t = CUDART_INF_F;
-      int best_leaf_tri = -1;
-#pragma unroll
-      for (int s = 0; s < ARITY; ++s) {
-        int pos = base - leaf_offset + s;
-        pos = pos < 0 ? 0 : (pos > n_leaf - 1 ? n_leaf - 1 : pos);
-        const int ti = leaf[pos];
-        float t_masked = CUDART_INF_F;
-        if (ti >= 0) {
-          float va[3], vb[3], vc[3];
-#pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            va[d] = tris[d * tri_pad + ti];
-            vb[d] = tris[(3 + d) * tri_pad + ti];
-            vc[d] = tris[(6 + d) * tri_pad + ti];
-          }
-          float t_num, t_denom;
-          bool h;
-          rayflex::op_triangle(org, shear, k, va, vb, vc, &t_num, &t_denom, &h);
-          const float t = __fdiv_rn(t_num, t_denom);
-          if (h && t < t_best && t <= extent && t >= t_min) t_masked = t;
-        }
-        if (s == 0 || t_masked < best_leaf_t) {  // strict <: first minimum
-          best_leaf_t = t_masked;
-          best_leaf_tri = ti;
+        for (int d = 0; d < 3; ++d) {
+          lo[b][d] = rec.at(d * ARITY + b);
+          hi[b][d] = rec.at((3 + d) * ARITY + b);
         }
       }
-      if (best_leaf_t < t_best) {
-        t_best = best_leaf_t;
-        best_tri = best_leaf_tri;
-        if (any_hit) done = true;
-      }
-    } else {
+      const bool neg[3] = {((code >> 6) & 1u) != 0, ((code >> 7) & 1u) != 0,
+                           ((code >> 8) & 1u) != 0};
+      float tmin[ARITY];
+      int idx[ARITY], hit[ARITY];
+      rayflex::op_box_test<ARITY>(org, inv, neg, lo, hi, tmin, idx, hit);
       // ---- push hit children farthest first (sorted order) ---------------
+      const int base = ARITY * node + 1;
 #pragma unroll
       for (int i = 0; i < ARITY; ++i) {
         const int slot = ARITY - 1 - i;
         if (hit[slot] && tmin[slot] < t_best) {
-          if (sp < stack_size) {
-            stack[sp++] = base + idx[slot];
+          if (sp < P.stack_size) {
+            top = base + idx[slot];
+            stack[sp++] = top;
+            pushed = true;
           } else {
             overflow = true;  // drop and flag
           }
         }
       }
+    } else {
+      // ---- ARITY OpTriangle jobs, the external divide, first minimum -----
+      // A leaf parent's slots start at ARITY (node - leaf_parent_offset):
+      // its children ARITY node + 1 .. less the leaf level's offset
+      // ARITY leaf_parent_offset + 1.
+      n_tri += ARITY;
+      const int k[3] = {static_cast<int>(code & 3u), static_cast<int>((code >> 2) & 3u),
+                        static_cast<int>((code >> 4) & 3u)};
+      const uint4* s =
+          P.slots + static_cast<size_t>(node - P.leaf_parent_offset) * ARITY * kSlotWords;
+      float best_leaf_t = CUDART_INF_F;
+      int best_leaf_tri = -1;
+#pragma unroll
+      for (int g = 0; g < ARITY; g += 4) {  // 4 slots' records in flight at once
+        uint4 w[4][kSlotWords];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+#pragma unroll
+          for (int i = 0; i < kSlotWords; ++i) w[j][i] = __ldg(s + (g + j) * kSlotWords + i);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float va[3] = {__uint_as_float(w[j][0].x), __uint_as_float(w[j][0].y),
+                               __uint_as_float(w[j][0].z)};
+          const float vb[3] = {__uint_as_float(w[j][0].w), __uint_as_float(w[j][1].x),
+                               __uint_as_float(w[j][1].y)};
+          const float vc[3] = {__uint_as_float(w[j][1].z), __uint_as_float(w[j][1].w),
+                               __uint_as_float(w[j][2].x)};
+          const int ti = static_cast<int>(w[j][2].y);
+          float t_num, t_denom;
+          bool h;
+          rayflex::op_triangle(org, shear, k, va, vb, vc, &t_num, &t_denom, &h);
+          if (h && ti >= 0) {
+            const float t = __fdiv_rn(t_num, t_denom);
+            // strict <: the first minimum
+            if (t < t_best && t <= extent && t >= P.t_min && t < best_leaf_t) {
+              best_leaf_t = t;
+              best_leaf_tri = ti;
+            }
+          }
+        }
+      }
+      if (best_leaf_t < t_best) {
+        t_best = best_leaf_t;
+        best_tri = best_leaf_tri;
+        if (P.any_hit) done = true;
+      }
     }
+    if (!pushed && sp > 0) top = stack[sp - 1];
   }
 
-  t_out[r] = t_best;
-  tri_out[r] = best_tri;
-  qb_out[r] = n_qb;
-  ntri_out[r] = n_tri;
-  ovf_out[r] = overflow;
+  if (!valid) return;
+  P.t_out[q] = t_best;
+  P.tri_out[q] = best_tri;
+  P.qb_out[q] = n_qb;
+  P.ntri_out[q] = n_tri;
+  P.ovf_out[q] = overflow;
 }
 
-struct TraverseArgs {
-  const float* rays;
-  int n_pad, n;
-  const void *nlo, *nhi;
-  int nodes_pad;
-  const int* leaf;
-  int n_leaf;
-  const float* tris;
-  int tri_pad, leaf_parent_offset, leaf_offset, max_rounds, any_hit;
-  float t_min;
-  int stack_size;
-  int* stack_scratch;
-  float* t;
-  int *tri, *qb, *ntri, *ovf;
-};
-
 template <int ARITY, typename BoxT, bool kLocalStack>
-void launch(const TraverseArgs& a, cudaStream_t stream) {
-  const int threads = 128;
-  const int blocks = (a.n + threads - 1) / threads;
-  traverse_kernel<ARITY, BoxT, kLocalStack><<<blocks, threads, 0, stream>>>(
-      a.rays, a.n_pad, a.n, static_cast<const BoxT*>(a.nlo), static_cast<const BoxT*>(a.nhi),
-      a.nodes_pad, a.leaf, a.n_leaf, a.tris, a.tri_pad, a.leaf_parent_offset, a.leaf_offset,
-      a.max_rounds, a.any_hit, a.t_min, a.stack_size, a.stack_scratch, a.t, a.tri, a.qb,
-      a.ntri, a.ovf);
+void launch(const Params& P, cudaStream_t stream) {
+  const int blocks = (P.n + kThreads - 1) / kThreads;
+  traverse_kernel<ARITY, BoxT, kLocalStack><<<blocks, kThreads, 0, stream>>>(P);
 }
 
 template <int ARITY, typename BoxT>
-void launch_stack(const TraverseArgs& a, cudaStream_t stream) {
-  if (a.stack_size <= kMaxLocalStack) {
-    launch<ARITY, BoxT, true>(a, stream);
+void launch_stack(const Params& P, cudaStream_t stream) {
+  if (P.stack_size <= kMaxLocalStack) {
+    launch<ARITY, BoxT, true>(P, stream);
   } else {
-    launch<ARITY, BoxT, false>(a, stream);
+    launch<ARITY, BoxT, false>(P, stream);
   }
 }
 
 template <int ARITY>
-void launch_box(const TraverseArgs& a, bool box_bf16, cudaStream_t stream) {
+void launch_box(const Params& P, bool box_bf16, cudaStream_t stream) {
   if (box_bf16) {
-    launch_stack<ARITY, __nv_bfloat16>(a, stream);
+    launch_stack<ARITY, __nv_bfloat16>(P, stream);
   } else {
-    launch_stack<ARITY, float>(a, stream);
+    launch_stack<ARITY, float>(P, stream);
   }
 }
 
 }  // namespace
 
-// rays: (16, n_pad) f32 union rows; nlo/nhi: (3, nodes_pad) f32, or bf16
-// when box_bf16; leaf: (n_leaf,) i32 (-1 = empty slot); tris: (9, tri_pad)
-// f32 rows a.xyz b.xyz c.xyz; arity 4 or 8; stack_scratch: (stack_size, n)
-// i32 device scratch when stack_size > 64, else unused (may be null).
-// Outputs (n,) each: t f32, tri i32, quadbox_jobs i32, triangle_jobs i32,
+// rays: (16, n_pad) f32 union rows; order: (n,) i32, the ray each thread
+// serves (null: thread r serves ray r); kids: (leaf_parent_offset,
+// 6 * arity) f32, or bf16 when box_bf16, each node's child boxes as rows
+// lo.x | lo.y | lo.z | hi.x | hi.y | hi.z of `arity` bounds; slots:
+// (arity^depth, 12) words, each leaf slot's a.xyz b.xyz c.xyz as f32 and
+// its triangle index as i32 (-1 = empty) and 2 words of padding; both
+// 16-byte aligned; arity 4 or 8; stack_scratch: (stack_size, n) i32 device
+// scratch when stack_size > 64, else unused (may be null).  Outputs (n,)
+// each: t f32, tri i32, quadbox_jobs i32, triangle_jobs i32,
 // stack_overflow i32.  Returns the launch's cudaError_t, or
 // cudaErrorInvalidValue for an arity other than 4 or 8, a stack size below
 // 1, or a stack deeper than 64 without scratch.
-extern "C" int rayflex_traverse(const void* rays, int n_pad, int n, const void* nlo,
-                                const void* nhi, int nodes_pad, const void* leaf, int n_leaf,
-                                const void* tris, int tri_pad, int leaf_parent_offset,
-                                int leaf_offset, int max_rounds, int any_hit, float t_min,
-                                int stack_size, int arity, int box_bf16, void* stack_scratch,
-                                void* t, void* tri, void* qb, void* ntri, void* ovf,
-                                void* stream) {
+extern "C" int rayflex_traverse(const void* rays, int n_pad, int n, const void* order,
+                                const void* kids, const void* slots, int leaf_parent_offset,
+                                int max_rounds, int any_hit, float t_min, int stack_size,
+                                int arity, int box_bf16, void* stack_scratch, void* t, void* tri,
+                                void* qb, void* ntri, void* ovf, void* stream) {
   if (stack_size < 1 || (arity != 4 && arity != 8) ||
       (stack_size > kMaxLocalStack && stack_scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
-  const TraverseArgs a{static_cast<const float*>(rays), n_pad, n, nlo, nhi, nodes_pad,
-                       static_cast<const int*>(leaf), n_leaf, static_cast<const float*>(tris),
-                       tri_pad, leaf_parent_offset, leaf_offset, max_rounds, any_hit, t_min,
-                       stack_size, static_cast<int*>(stack_scratch), static_cast<float*>(t),
-                       static_cast<int*>(tri), static_cast<int*>(qb), static_cast<int*>(ntri),
-                       static_cast<int*>(ovf)};
+  const Params P{static_cast<const float*>(rays), n_pad, n, static_cast<const int*>(order),
+                 static_cast<const uint4*>(kids), static_cast<const uint4*>(slots),
+                 leaf_parent_offset, max_rounds, any_hit, t_min, stack_size,
+                 static_cast<int*>(stack_scratch), static_cast<float*>(t), static_cast<int*>(tri),
+                 static_cast<int*>(qb), static_cast<int*>(ntri), static_cast<int*>(ovf)};
   const auto s = static_cast<cudaStream_t>(stream);
   if (arity == 4) {
-    launch_box<4>(a, box_bf16 != 0, s);
+    launch_box<4>(P, box_bf16 != 0, s);
   } else {
-    launch_box<8>(a, box_bf16 != 0, s);
+    launch_box<8>(P, box_bf16 != 0, s);
   }
   RAYFLEX_LAUNCH_RESULT();
 }

@@ -46,7 +46,7 @@ from repro_torch.core import bvh as tbvh
 from repro_torch.core.datapath import boxsort, ray_box_test
 from repro_torch.core.types import Box, Triangle
 from repro_torch.core.wavefront import trace_wavefront
-from repro_torch.kernels.traverse import pack_bvh, traverse_packed
+from repro_torch.kernels.traverse import pack_bvh, pack_bvh_rows, traverse_packed
 from test_torch_trace import GOLDEN, GOLDEN_SCENES, _assert_record, _assert_same
 
 CODECS = (("fp32", "fp32"), ("bf16", "fp32"), ("bf16", "compressed"))
@@ -363,13 +363,15 @@ def test_superset_holds_on_every_missing_ray():
     rays = make_ray(org, dirs, ext, device="cpu")
     for builder in ("lbvh", "sah"):
         ex_sc = Scene.from_triangles(tris, builder=builder, device="cpu")
+        # the exact twin, traced once per builder and ray type
+        exact = {ray_type: trace_wavefront(ex_sc.bvh, rays, ex_sc.depth, ray_type=ray_type)
+                 for ray_type in ("closest", "any", "shadow")}
         for codec in CODECS[1:]:
             narrow = tbvh.DatapathConfig(4, 64, *codec)
             sc = Scene.from_triangles(tris, builder=builder, config=narrow, device="cpu")
-            for ray_type in ("closest", "any", "shadow"):
+            for ray_type, ex in exact.items():
                 got = trace_wavefront(sc.bvh, rays, sc.depth, ray_type=ray_type,
                                       config=narrow)
-                ex = trace_wavefront(ex_sc.bvh, rays, ex_sc.depth, ray_type=ray_type)
                 miss = ~got.hit & ~ex.hit
                 assert int(miss.sum()) > 50 and torch.equal(got.hit, ex.hit)
                 assert (got.quadbox_jobs[miss] >= ex.quadbox_jobs[miss]).all()
@@ -386,9 +388,10 @@ def test_fused_kernel_under_config_matches_pallas_interpret(tag):
     jcfg = jbvh.DatapathConfig(*config_from_tag(tag))
     js = JScene.from_triangles(tris, config=jcfg)
     sc = Scene.from_triangles(tris, config=config_from_tag(tag), device="cpu")
-    packed, jpacked = pack_bvh(sc.bvh, sc.config), jpack_bvh(js.bvh, jcfg)
-    assert packed.nlo.dtype == sc.config.packed_box_dtype
-    for g, w in zip(packed, jpacked):
+    rows, jpacked = pack_bvh_rows(sc.bvh, sc.config), jpack_bvh(js.bvh, jcfg)
+    packed = pack_bvh(sc.bvh, sc.config)
+    assert rows.nlo.dtype == packed.kids.dtype == sc.config.packed_box_dtype
+    for g, w in zip(rows, jpacked):
         g = g.view(torch.int16) if g.dtype == torch.bfloat16 else _as_bits(g)
         w = np.asarray(w)
         w = w.view(np.int16) if w.dtype == ml_dtypes.bfloat16 else _bits(w)

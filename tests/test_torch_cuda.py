@@ -32,7 +32,8 @@ from repro_torch.kernels.raybox import raybox, raybox_plain
 from repro_torch.kernels.raytri import raytri, raytri_plain
 from repro_torch.kernels.common import LANES, ROW_K, ROW_MASK, ROW_RESET, ROW_VEC_A
 from repro_torch.kernels.traverse import (neighbor_launch, neighbor_packed, pack_bvh,
-                                          pack_point_bvh, pack_rays, traverse_packed)
+                                          pack_point_bvh, pack_rays, ray_order,
+                                          traverse_launch, traverse_packed)
 from repro_torch.kernels.unified import unified, unified_plain
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -454,7 +455,7 @@ def _twin_scene(cuda, tag, stack, builder="lbvh"):
 def test_fused_kernel_under_config_bit_equal_to_wavefront(cuda, tag, builder, stack):
     sc, rays = _twin_scene(cuda, tag, stack, builder)
     packed = pack_bvh(sc.bvh, sc.config)
-    assert packed.nlo.dtype == sc.config.packed_box_dtype
+    assert packed.kids.dtype == sc.config.packed_box_dtype
     before = nvcc.launch_counts().get("traverse", 0)
     overflowed = False
     for ray_type in RAY_TYPES:
@@ -494,10 +495,8 @@ def test_traverse_entry_point_takes_every_stack_size(cuda, stack):
 
     def call(scratch):
         return lib.rayflex_traverse(
-            ray_op.data_ptr(), ray_op.shape[1], n, packed.nlo.data_ptr(),
-            packed.nhi.data_ptr(), packed.nlo.shape[1], packed.leaf.data_ptr(),
-            4**sc.depth, packed.tris.data_ptr(), packed.tris.shape[1],
-            (4**(sc.depth - 1) - 1) // 3, (4**sc.depth - 1) // 3, (4**sc.depth - 1) // 3,
+            ray_op.data_ptr(), ray_op.shape[1], n, None, packed.kids.data_ptr(),
+            packed.slots.data_ptr(), (4**(sc.depth - 1) - 1) // 3, (4**sc.depth - 1) // 3,
             0, ctypes.c_float(0.0), stack, 4, 0, scratch, *(o.data_ptr() for o in outs),
             stream)
 
@@ -509,3 +508,34 @@ def test_traverse_entry_point_takes_every_stack_size(cuda, stack):
     got = traverse_packed(packed, rays, sc.depth, config=sc.config)
     for f in want._fields:
         assert _bits_equal(getattr(got, f), getattr(want, f)), f
+
+
+@pytest.mark.parametrize("stack", [2, 100])
+@pytest.mark.parametrize("tag", ["bvh4_s64_fp32_fp32", "bvh4_s64_bf16_compressed",
+                                 "bvh8_s64_fp32_fp32", "bvh8_s64_bf16_fp32"])
+def test_traverse_kernel_every_variant_in_any_order(cuda, tag, stack):
+    """Each of the kernel's 8 variants (arity x node-box type x stack home)
+    bit-equal to ``trace_wavefront`` on every field, with the rays served in
+    the caller's order, a random order and ``ray_order``'s, for every ray
+    type, with ``t_min`` and ``max_rounds``; the 2-slot stack overflows."""
+    sc, rays = _twin_scene(cuda, tag, stack)
+    packed = pack_bvh(sc.bvh, sc.config)
+    n = rays.origin.shape[0]
+    ray_op = pack_rays(rays, -(-n // LANES) * LANES)
+    shuffled = torch.randperm(n, generator=torch.Generator().manual_seed(23))
+    orders = (None, shuffled.to(torch.int32).to(cuda), ray_order(rays))
+    before = nvcc.launch_counts().get("traverse", 0)
+    overflowed = False
+    cases = (("closest", {}), ("any", {}), ("shadow", {}), ("closest", {"t_min": 2.0}),
+             ("closest", {"max_rounds": 5}), ("any", {"t_min": 1.0, "max_rounds": 7}))
+    for ray_type, kw in cases:
+        want = trace_wavefront(sc.bvh, rays, sc.depth, ray_type=ray_type, config=sc.config,
+                               **kw)
+        for order in orders:
+            got = traverse_launch(packed, ray_op, order, n, sc.depth, ray_type=ray_type,
+                                  config=sc.config, **kw)
+            for f in want._fields:
+                assert _bits_equal(getattr(got, f), getattr(want, f)), (ray_type, kw, f)
+        overflowed |= bool(want.stack_overflow.any())
+    assert overflowed == (stack == 2)
+    assert nvcc.launch_counts()["traverse"] == before + len(cases) * len(orders)
