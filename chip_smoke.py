@@ -28,13 +28,7 @@ Phases (any failure exits non-zero and prints no result line):
    inputs, its output held bit-equal to its plain version's on those
    inputs.  The traversal kernel's bound (distinct bytes against
    job-counted operations, box tests at inner pops only) with its share at
-   the unfused f32 rate and the 32 B sectors its jobs gather; its closest,
-   any and shadow rays in the caller's order and in ``ray_order``'s
-   schedule, the sort inside the timed call; and the kernel's variants of
-   ``TRAV_VARIANTS`` (``traverse.cu`` rebuilt alone under other register
-   caps, and without the warp vote) beside its own, each record bit-equal
-   to ``trace_wavefront`` (phase 11 does the same for the LBVH BVH8 f32
-   twin);
+   the unfused f32 rate and the 32 B sectors its jobs gather;
 7. brute-force vector search at the shapes of two public ann-benchmarks
    sets, synthesised from a seed as clustered Gaussians:
    ``sift-128-euclidean`` (1,000,000 x 128, 10,000 queries; ``nearest``
@@ -174,11 +168,6 @@ TRAV_RAY_BYTES, SECTOR_BYTES = 84, 32
 #: f32 operations a second without FMA: the kernels build with
 #: -fmad=false, and the 67 TFLOP/s peak counts an FMA as two
 F32_UNFUSED_OPS_PER_S = F32_OPS_PER_S / 2
-#: the traversal kernel's variants timed beside its own: register caps
-#: (blocks of 128 threads resident on an SM) and the loop without the
-#: warp vote, each built from ``traverse.cu`` with these flags
-TRAV_VARIANTS = tuple((f"{b} blocks", f"-DRAYFLEX_TRAVERSE_MIN_BLOCKS={b}")
-                      for b in (4, 5, 6, 7, 8)) + (("no vote", "-DRAYFLEX_TRAVERSE_VOTE=0"),)
 #: f32 ops of a triangle job inside traversal: the unit, the divide, and
 #: the 4 compares of the commit
 TRAV_TRI_OPS = RAYTRI_OPS + 1 + 4
@@ -807,10 +796,6 @@ def phase_main_path(torch):
     gathered = traverse_gathered(packed, n_rays, sum_qb, sum_tri, 4)[2]
     say(f"phase 6 traverse: {n_rays} primary rays; kernel {trav_ms:.3f} ms; "
         + traverse_metrics(packed, n_rays, sum_qb, sum_tri, 4, trav_ms))
-    any_ref = trace_wavefront(bvh, primary, scene.depth, ray_type="any")
-    traverse_schedules(torch, packed, scene.depth, (
-        ("closest", primary, rec_p), ("any", primary, any_ref), ("shadow", shadow, sh_ref)))
-    traverse_variants(torch, packed, primary, scene.depth, rec_p)
 
     f32, i32 = torch.float32, torch.int32
     rb_args = ray_box_operands(primary, fr["emitters"])
@@ -858,76 +843,6 @@ def phase_main_path(torch):
     rows[-1]["gathered_ms"] = gathered / HBM_BYTES_PER_S * 1e3
     stage_jobs = {k: fr[k] for k in ("primary", "emitters", "to_tri", "corners")}
     return rows, stage_jobs
-
-
-def traverse_schedules(torch, packed, depth: int, cases) -> None:
-    """The traversal kernel in the caller's order and in ``ray_order``'s
-    schedule (the sort inside the timed call), for each (ray type, rays,
-    plain record) of ``cases``, on the main path's tree; every record
-    bit-equal to the plain version's.  The wrapper serves every type in
-    the caller's order, which wins here."""
-    from repro_torch.kernels.common import LANES, ceil_to
-    from repro_torch.kernels.traverse import pack_rays, ray_order, traverse_launch
-
-    for ray_type, rays, want in cases:
-        n = rays.origin.shape[0]
-
-        def run(schedule):
-            order = ray_order(rays) if schedule else None
-            return traverse_launch(packed, pack_rays(rays, ceil_to(n, LANES)), order, n,
-                                   depth, ray_type=ray_type)
-
-        caller_ms, rec_c = event_ms(lambda: run(False))
-        zorder_ms, rec_z = event_ms(lambda: run(True))
-        sort_ms, _ = event_ms(lambda: ray_order(rays))
-        same_bits(f"phase 6 {ray_type}: kernel in the caller's order vs trace_wavefront",
-                  rec_c, want)
-        same_bits(f"phase 6 {ray_type}: kernel in ray_order's schedule vs trace_wavefront",
-                  rec_z, want)
-        say(f"phase 6 traverse schedule, {ray_type} ({n} rays): caller's order "
-            f"{caller_ms:.3f} ms, ray_order {zorder_ms:.3f} ms (its sort {sort_ms:.3f} ms "
-            f"inside; median of {TIMED_REPS}, each launch with its pack_rays): "
-            f"{caller_ms / zorder_ms:.3f}x")
-
-
-def traverse_variants(torch, packed, rays, depth: int, want, config=None) -> None:
-    """The local-stack traversal kernel of ``config``'s arity and box type
-    (closest, the caller's order) in each build of :data:`TRAV_VARIANTS`, a
-    library of ``traverse.cu`` alone, timed beside the main library's
-    kernel as median of 5 event windows around one call of the C entry
-    point; every record bit-equal to the plain version's."""
-    from repro_torch.core.bvh import level_offset, resolve_config
-    from repro_torch.kernels import nvcc
-    from repro_torch.kernels.common import LANES, ceil_to
-    from repro_torch.kernels.traverse import pack_rays, traverse_call
-
-    config = resolve_config(config)
-    box = "f32" if config.packed_box_dtype == torch.float32 else "bf16"
-    variant = f"[bvh{config.arity} {box} rows, local stack]"
-    n = rays.origin.shape[0]
-    ray_op = pack_rays(rays, ceil_to(n, LANES))
-    stream = torch.cuda.current_stream().cuda_stream
-    libs = [("the source's defaults", nvcc.library(), None)]
-    for label, flag in TRAV_VARIANTS:
-        path = nvcc.build((flag,), ("traverse.cu",))
-        log = nvcc.build_log.get(f"traverse.cu {flag}")
-        libs.append((f"{label} ({flag})", nvcc.load(path, ["rayflex_traverse"]), log))
-    for label, lib, log in libs:
-        call = traverse_call(packed, ray_op, None, n, depth, ray_type="closest", t_min=0.0,
-                             max_rounds=level_offset(depth, config.arity), config=config)
-
-        def launch():
-            err = lib.rayflex_traverse(*call.args, stream)
-            if err != 0:
-                fail(f"rayflex_traverse ({label}) returned CUDA error {err}")
-
-        ms, _ = event_ms(launch)
-        same_bits(f"traverse kernel {variant}, {label}, vs trace_wavefront",
-                  call.record(), want)
-        regs = ("; ".join(line for lab, line in traverse_ptxas(log) if lab == variant)
-                if log else "ptxas: as phase 1 reports")
-        say(f"traverse variant {variant}, {label}: kernel {ms:.3f} ms "
-            f"(median of {TIMED_REPS}, {n} closest rays); {regs}")
 
 
 def kernel_row(name, source, replaces, launches, ms, plain_ms, err, bound,
@@ -1608,7 +1523,7 @@ def phase_dynamic(torch):
     from repro_torch.core.wavefront import trace_wavefront
     from repro_torch.kernels import nvcc
     from repro_torch.kernels.distance import norms_plain
-    from repro_torch.kernels.traverse import lay_out_rows, pack_bvh_rows
+    from repro_torch.kernels.traverse import pack_bvh
 
     tri = clustered_soup(np.random.default_rng(SEED), N_CLUSTERS, PER_CLUSTER, device="cuda")
     vel = torch.as_tensor(np.random.default_rng(ANIM_SEED).normal(
@@ -1796,16 +1711,15 @@ def phase_dynamic(torch):
         torch.cuda.synchronize()
         first_trace.append((time.perf_counter() - t0) * 1e3)
     steady_ms = wall_ms(lambda: engine.trace(primary))
-    rows_ms, rows = event_ms(lambda: pack_bvh_rows(scene.bvh))
-    layout_ms, _ = event_ms(lambda: lay_out_rows(rows, scene.depth))
+    repack_ms, _ = event_ms(lambda: pack_bvh(scene.bvh))
     c_refit_ms = wall_ms(lambda: cloud.refit(moved_pts))
     c_build_ms = wall_ms(lambda: PointCloudScene.from_points(moved_pts, device="cuda"))
     say(f"phase 10 times (median of {TIMED_REPS}): Scene.refit {refit_ms:.3f} ms vs "
         f"Scene.from_triangles {build_ms:.3f} ms ({N_CLUSTERS * PER_CLUSTER} triangles); "
         f"first trace after a refit (re-pack included) "
         f"{statistics.median(first_trace):.3f} ms vs steady {steady_ms:.3f} ms "
-        f"({n_rays} rays; the re-pack alone: the rows {rows_ms:.3f} ms and their "
-        f"layout {layout_ms:.3f} ms, device time); PointCloudScene.refit "
+        f"({n_rays} rays; the re-pack alone, pack_bvh: {repack_ms:.3f} ms, device "
+        f"time); PointCloudScene.refit "
         f"{c_refit_ms:.3f} ms vs from_points {c_build_ms:.3f} ms ({n_pts} points)")
 
 
@@ -1870,8 +1784,6 @@ def phase_twins(torch):
                         f"rays", rec_k, rec_p)
         same_bits(f"phase 11 {label}: engine closest trace vs trace_wavefront",
                   closest, rec_p)
-        if (builder, tag) == ("lbvh", "bvh8_s64_fp32_fp32"):
-            traverse_variants(torch, packed, primary, scene.depth, rec_p, config)
         for rtype, rays, rec in (("any", primary, anyhit), ("shadow", shadow_rays, shadow)):
             same_bits(f"phase 11 {label}: engine {rtype} trace vs trace_wavefront, all "
                       f"{rays.origin.shape[0]} rays", rec,

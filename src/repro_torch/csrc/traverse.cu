@@ -34,20 +34,15 @@
 //     warp's accesses to one depth coalesce.  The ray's registers, best hit
 //     and counters stay in registers; nothing is written before the ray
 //     retires.  __launch_bounds__ caps the registers so that
-//     min_blocks(ARITY) blocks of 128 threads stay resident, spill-free;
+//     min_blocks(ARITY) blocks of 128 threads stay resident: spill-free but
+//     for one 4 B register of the BVH4 scratch-stack variants;
 //   * one branch per warp step: the loop is warp-uniform, and each step
 //     runs the branch (inner node or leaf parent) that more of the warp's
 //     active lanes have on top (a vote); the other lanes wait one step.  A
 //     lane always pops its own top, so each ray's sequence of pops, and
-//     every counter, is the plain version's.  RAYFLEX_TRAVERSE_VOTE=0
-//     builds the loop without the vote, which chip_smoke.py times beside
-//     it (slower), as it times other register caps (RAYFLEX_TRAVERSE_MIN_BLOCKS);
-//   * the schedule: the launcher may pass a permutation (ray_order in
-//     kernels/traverse.py: a Z-order of origin and direction); thread r then
-//     serves ray order[r] and writes that ray's column, so a warp holds rays
-//     that walk similar paths.  On clustered-1M's camera rays that makes the
-//     kernel ~13% faster, but the sort costs more than it saves, so the
-//     wrapper passes none (chip_smoke.py phase 6 times both).
+//     every counter, is the plain version's.  Thread r serves ray r: a
+//     Z-order ray schedule made the kernel ~13% faster on clustered-1M's
+//     camera rays, but its sort cost more than that on the H100.
 //
 // Semantics are the plain version's (core/wavefront.py) exactly: a round
 // adds `arity` to triangle_jobs at every leaf parent even where slots hold
@@ -60,13 +55,6 @@
 
 #include "datapath.cuh"
 
-#ifndef RAYFLEX_TRAVERSE_MIN_BLOCKS
-#define RAYFLEX_TRAVERSE_MIN_BLOCKS 0  // 0: each arity's own default below
-#endif
-#ifndef RAYFLEX_TRAVERSE_VOTE
-#define RAYFLEX_TRAVERSE_VOTE 1  // 0: no vote, the measured alternative
-#endif
-
 namespace {
 
 constexpr int kMaxLocalStack = 64;  // deepest stack kept in a local array
@@ -74,10 +62,9 @@ constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kSlotWords = 3;  // 16 B words of a leaf slot: a.xyz b.x | b.yz c.xy | c.z idx
 
-// Blocks of 128 threads each SM keeps resident: the register cap.
-constexpr int min_blocks(int arity) {
-  return RAYFLEX_TRAVERSE_MIN_BLOCKS > 0 ? RAYFLEX_TRAVERSE_MIN_BLOCKS : (arity == 4 ? 7 : 6);
-}
+// Blocks of 128 threads each SM keeps resident: the register cap, the
+// fastest of 4-8 on the H100.
+constexpr int min_blocks(int arity) { return arity == 4 ? 7 : 6; }
 
 // Ray operand rows (the reference's union layout, (16, n_pad) f32).
 constexpr int kRowOrg = 0, kRowDir = 3, kRowInv = 6, kRowShear = 9, kRowK = 12, kRowExt = 15;
@@ -85,7 +72,6 @@ constexpr int kRowOrg = 0, kRowDir = 3, kRowInv = 6, kRowShear = 9, kRowK = 12, 
 struct Params {
   const float* rays;  // (16, n_pad)
   int n_pad, n;
-  const int* order;    // (n,) the ray each thread serves, or null
   const uint4* kids;   // (leaf_parent_offset, record words) child records
   const uint4* slots;  // (arity^depth, 3) leaf slots
   int leaf_parent_offset, max_rounds, any_hit;
@@ -125,33 +111,28 @@ struct ChildRecord {
   }
 };
 
-// The ray's stack: a local array, or a column of device scratch.
+// Slot i of thread r's stack: a local array, or a column of device scratch
+// addressed from the kernel's parameters (no register holds its base).
 template <bool kLocal>
 struct RayStack;
 
 template <>
 struct RayStack<true> {
   int slot[kMaxLocalStack];
-  __device__ __forceinline__ RayStack(int*, int, int) {}
-  __device__ __forceinline__ int& operator[](int i) { return slot[i]; }
+  __device__ __forceinline__ int& at(const Params&, int, int i) { return slot[i]; }
 };
 
 template <>
 struct RayStack<false> {
-  int* column;
-  int stride;
-  __device__ __forceinline__ RayStack(int* scratch, int r, int n)
-      : column(scratch + r), stride(n) {}
-  __device__ __forceinline__ int& operator[](int i) {
-    return column[static_cast<size_t>(i) * stride];
+  __device__ __forceinline__ int& at(const Params& P, int r, int i) {
+    return P.stack_scratch[static_cast<size_t>(i) * P.n + r];
   }
 };
 
 template <int ARITY, typename BoxT, bool kLocalStack>
 __global__ void __launch_bounds__(kThreads, min_blocks(ARITY)) traverse_kernel(const Params P) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool valid = r < P.n;
-  const int q = valid ? (P.order ? __ldg(P.order + r) : r) : 0;
+  const bool valid = r < P.n;  // columns n .. n_pad - 1 repeat ray 0
 
   float org[3], inv[3], shear[3];
   // kx, ky, kz (0..2) in bits 0-5 and the direction's sign bits in 6-8: one
@@ -159,17 +140,17 @@ __global__ void __launch_bounds__(kThreads, min_blocks(ARITY)) traverse_kernel(c
   unsigned code = 0;
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    org[d] = __ldg(P.rays + (kRowOrg + d) * P.n_pad + q);
-    inv[d] = __ldg(P.rays + (kRowInv + d) * P.n_pad + q);
-    shear[d] = __ldg(P.rays + (kRowShear + d) * P.n_pad + q);
-    const int kd = static_cast<int>(__ldg(P.rays + (kRowK + d) * P.n_pad + q));
-    const bool neg = signbit(__ldg(P.rays + (kRowDir + d) * P.n_pad + q));
+    org[d] = __ldg(P.rays + (kRowOrg + d) * P.n_pad + r);
+    inv[d] = __ldg(P.rays + (kRowInv + d) * P.n_pad + r);
+    shear[d] = __ldg(P.rays + (kRowShear + d) * P.n_pad + r);
+    const int kd = static_cast<int>(__ldg(P.rays + (kRowK + d) * P.n_pad + r));
+    const bool neg = signbit(__ldg(P.rays + (kRowDir + d) * P.n_pad + r));
     code |= (static_cast<unsigned>(kd) << (2 * d)) | (static_cast<unsigned>(neg) << (6 + d));
   }
-  const float extent = __ldg(P.rays + kRowExt * P.n_pad + q);
+  const float extent = __ldg(P.rays + kRowExt * P.n_pad + r);
 
-  RayStack<kLocalStack> stack(P.stack_scratch, r, P.n);
-  // stack[sp - 1] whenever sp > 0, kept in a register: after a push it is
+  RayStack<kLocalStack> stack;
+  // slot sp - 1 whenever sp > 0, kept in a register: after a push it is
   // the last child pushed, so the next pop needs no load.  The root is
   // pre-pushed and never stored: it is popped first, before any push.
   int top = 0, sp = valid ? 1 : 0;
@@ -180,15 +161,11 @@ __global__ void __launch_bounds__(kThreads, min_blocks(ARITY)) traverse_kernel(c
   for (;;) {  // one warp step; every lane of the warp runs it
     const bool active = sp > 0 && !done && n_qb < P.max_rounds;
     const bool leafy = top >= P.leaf_parent_offset;
-#if RAYFLEX_TRAVERSE_VOTE
     const unsigned act = __ballot_sync(kFull, active);
     if (act == 0) break;
     const int n_leafy = __popc(__ballot_sync(kFull, active && leafy));
     const bool leaf_step = 2 * n_leafy >= __popc(act);  // the vote
     if (!active || leafy != leaf_step) continue;
-#else
-    if (!active) break;  // each lane its own loop: a warp runs both branches
-#endif
 
     const int node = top;
     --sp;
@@ -220,7 +197,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks(ARITY)) traverse_kernel(c
         if (hit[slot] && tmin[slot] < t_best) {
           if (sp < P.stack_size) {
             top = base + idx[slot];
-            stack[sp++] = top;
+            stack.at(P, r, sp++) = top;
             pushed = true;
           } else {
             overflow = true;  // drop and flag
@@ -275,15 +252,15 @@ __global__ void __launch_bounds__(kThreads, min_blocks(ARITY)) traverse_kernel(c
         if (P.any_hit) done = true;
       }
     }
-    if (!pushed && sp > 0) top = stack[sp - 1];
+    if (!pushed && sp > 0) top = stack.at(P, r, sp - 1);
   }
 
   if (!valid) return;
-  P.t_out[q] = t_best;
-  P.tri_out[q] = best_tri;
-  P.qb_out[q] = n_qb;
-  P.ntri_out[q] = n_tri;
-  P.ovf_out[q] = overflow;
+  P.t_out[r] = t_best;
+  P.tri_out[r] = best_tri;
+  P.qb_out[r] = n_qb;
+  P.ntri_out[r] = n_tri;
+  P.ovf_out[r] = overflow;
 }
 
 template <int ARITY, typename BoxT, bool kLocalStack>
@@ -312,9 +289,9 @@ void launch_box(const Params& P, bool box_bf16, cudaStream_t stream) {
 
 }  // namespace
 
-// rays: (16, n_pad) f32 union rows; order: (n,) i32, the ray each thread
-// serves (null: thread r serves ray r); kids: (leaf_parent_offset,
-// 6 * arity) f32, or bf16 when box_bf16, each node's child boxes as rows
+// rays: (16, n_pad) f32 union rows, n_pad a multiple of 128 and at least
+// n (thread r reads column r); kids: (leaf_parent_offset, 6 * arity) f32,
+// or bf16 when box_bf16, each node's child boxes as rows
 // lo.x | lo.y | lo.z | hi.x | hi.y | hi.z of `arity` bounds; slots:
 // (arity^depth, 12) words, each leaf slot's a.xyz b.xyz c.xyz as f32 and
 // its triangle index as i32 (-1 = empty) and 2 words of padding; both
@@ -322,21 +299,21 @@ void launch_box(const Params& P, bool box_bf16, cudaStream_t stream) {
 // scratch when stack_size > 64, else unused (may be null).  Outputs (n,)
 // each: t f32, tri i32, quadbox_jobs i32, triangle_jobs i32,
 // stack_overflow i32.  Returns the launch's cudaError_t, or
-// cudaErrorInvalidValue for an arity other than 4 or 8, a stack size below
-// 1, or a stack deeper than 64 without scratch.
-extern "C" int rayflex_traverse(const void* rays, int n_pad, int n, const void* order,
-                                const void* kids, const void* slots, int leaf_parent_offset,
-                                int max_rounds, int any_hit, float t_min, int stack_size,
-                                int arity, int box_bf16, void* stack_scratch, void* t, void* tri,
-                                void* qb, void* ntri, void* ovf, void* stream) {
-  if (stack_size < 1 || (arity != 4 && arity != 8) ||
+// cudaErrorInvalidValue for another n_pad, an arity other than 4 or 8, a
+// stack size below 1, or a stack deeper than 64 without scratch.
+extern "C" int rayflex_traverse(const void* rays, int n_pad, int n, const void* kids,
+                                const void* slots, int leaf_parent_offset, int max_rounds,
+                                int any_hit, float t_min, int stack_size, int arity, int box_bf16,
+                                void* stack_scratch, void* t, void* tri, void* qb, void* ntri,
+                                void* ovf, void* stream) {
+  if (n_pad % kThreads != 0 || n_pad < n || stack_size < 1 || (arity != 4 && arity != 8) ||
       (stack_size > kMaxLocalStack && stack_scratch == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n <= 0) return 0;
-  const Params P{static_cast<const float*>(rays), n_pad, n, static_cast<const int*>(order),
-                 static_cast<const uint4*>(kids), static_cast<const uint4*>(slots),
-                 leaf_parent_offset, max_rounds, any_hit, t_min, stack_size,
+  const Params P{static_cast<const float*>(rays), n_pad, n, static_cast<const uint4*>(kids),
+                 static_cast<const uint4*>(slots), leaf_parent_offset, max_rounds, any_hit, t_min,
+                 stack_size,
                  static_cast<int*>(stack_scratch), static_cast<float*>(t), static_cast<int*>(tri),
                  static_cast<int*>(qb), static_cast<int*>(ntri), static_cast<int*>(ovf)};
   const auto s = static_cast<cudaStream_t>(stream);

@@ -40,8 +40,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "rayflex_raybox": [_P] * 8 + [_I, _P],
     "rayflex_raytri": [_P] * 9 + [_I, _P],
-    "rayflex_traverse": [_P, _I, _I, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I,
-                         _P, _P, _P, _P, _P, _P, _P],
+    "rayflex_traverse": [_P, _I, _I, _P, _P, _I, _I, _I, _F, _I, _I, _I, _P,
+                         _P, _P, _P, _P, _P, _P],
     "rayflex_distance": [_P, _P, _P, _I, _I, _I, _I, _P],
     "rayflex_norm": [_P, _P, _I, _I, _P],
     "rayflex_neighbor": [_P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F,
@@ -84,25 +84,20 @@ def _sources() -> list[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
-def _digest(flags: list[str], names: list[str]) -> str:
-    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS + flags).encode())
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
     for path in sorted(CSRC.iterdir()):
-        if path.suffix == ".cuh" or path.name in names:
+        if path.suffix in (".cu", ".cuh"):
             h.update(path.name.encode())
             h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build(extra_flags: tuple[str, ...] = (), sources: tuple[str, ...] | None = None) -> Path:
+def build() -> Path:
     """Compile the kernels if this version is not built yet; return the
-    path of the shared library.  ``sources`` (file names) and
-    ``extra_flags`` (say, a ``-D``) build a variant library of those
-    sources alone, whose ptxas report goes into :data:`build_log` under
-    each file name followed by the flags."""
+    path of the shared library."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    srcs = [p for p in _sources() if sources is None or p.name in sources]
-    flags = list(extra_flags)
-    out = BUILD_DIR / f"librayflex_{_digest(flags, [p.name for p in srcs])}.so"
+    out = BUILD_DIR / f"librayflex_{_digest()}.so"
     if out.exists():
         return out
     nvcc = find_nvcc()
@@ -110,14 +105,15 @@ def build(extra_flags: tuple[str, ...] = (), sources: tuple[str, ...] | None = N
         def compile_one(src: Path) -> Path:
             obj = Path(tmp) / (src.stem + ".o")
             proc = subprocess.run(
-                [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *flags, "-I", str(CSRC), "-c",
+                [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-I", str(CSRC), "-c",
                  str(src), "-o", str(obj)], capture_output=True, text=True)
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n"
                                    f"{proc.stdout}\n{proc.stderr}")
-            build_log[" ".join([src.name, *flags])] = proc.stderr.strip()
+            build_log[src.name] = proc.stderr.strip()
             return obj
 
+        srcs = _sources()
         with ThreadPoolExecutor(max_workers=len(srcs)) as pool:
             objs = list(pool.map(compile_one, srcs))
         staged = Path(tmp) / out.name
@@ -129,21 +125,15 @@ def build(extra_flags: tuple[str, ...] = (), sources: tuple[str, ...] | None = N
     return out
 
 
-def load(path: Path, names) -> ctypes.CDLL:
-    """Load a built library and declare the C entry points ``names``."""
-    lib = ctypes.CDLL(str(path))
-    for name in names:
-        fn = getattr(lib, name)
-        fn.argtypes = SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return lib
-
-
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at the first call)."""
     global _lib
     if _lib is None:
-        lib = load(build(), SIGNATURES)
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         lib.rayflex_error_string.argtypes = [ctypes.c_int]
         lib.rayflex_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -5,16 +5,14 @@ The port's counterpart of ``repro/kernels/traverse.py``.  Host side,
 :func:`pack_rays` builds the reference's ``(16, n_pad)`` union of ray
 rows; :func:`pack_bvh_rows` the reference's tree operands (node boxes as
 rows-by-nodes, the leaf table, the triangle soup as 9 vertex rows, each
-padded to a multiple of :data:`~repro_torch.kernels.common.LANES`), and
-:func:`pack_bvh` lays those rows out for the traversal kernel's vector
-loads (:class:`PackedBVH`); :func:`pack_point_bvh` lays a point tree out
-for the neighbour kernel.  :func:`traverse_packed` and
-:func:`neighbor_packed` launch the CUDA kernels on CUDA operands, one
+padded to a multiple of :data:`~repro_torch.kernels.common.LANES`), which
+the tests hold against the reference's; :func:`pack_bvh` lays a tree out
+for the traversal kernel's vector loads (:class:`PackedBVH`), and
+:func:`pack_point_bvh` for the neighbour kernel's.  :func:`traverse_packed`
+and :func:`neighbor_packed` launch the CUDA kernels on CUDA operands, one
 thread per ray or query; the traversal kernel serves its rays in the
-caller's order (:func:`ray_order`'s schedule, measured slower with its
-sort inside the call, stays a launch option), the neighbour kernel its
-queries in :func:`query_order`'s and picks its variant by
-:func:`neighbor_variant`.  On CPU operands
+caller's order, the neighbour kernel its queries in :func:`query_order`'s
+and picks its variant by :func:`neighbor_variant`.  On CPU operands
 :func:`traverse_packed` runs its kernel's plain version,
 ``core.wavefront.trace_wavefront``, on the tree :func:`unpack_bvh` gives
 back; :func:`neighbor_packed` raises, and :func:`neighbor_fused` runs
@@ -22,7 +20,6 @@ back; :func:`neighbor_packed` raises, and :func:`neighbor_fused` runs
 """
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -123,35 +120,36 @@ def pack_bvh_rows(bvh: BVH4, config: DatapathConfig | None = None) -> BVHRows:
     return BVHRows(nlo, nhi, leaf.contiguous(), tris.contiguous())
 
 
-def lay_out_rows(rows: BVHRows, depth: int, arity: int = 4) -> PackedBVH:
-    """The reference's rows -> the kernel's layout.  Each node above the
-    leaf parents gets one record of its ``arity`` children's boxes, rows
-    lo.x | lo.y | lo.z | hi.x | hi.y | hi.z of ``arity`` bounds in the rows'
-    type (a box test reads them with 16 B loads); no leaf box is kept (no
-    record depends on a leaf parent's box test), nor the root's own box
-    (the root is pre-pushed, never tested).  Each leaf slot gets its
-    triangle's 9 vertex floats and its index (zeros and -1 in an empty
-    slot), in leaf-slot order."""
+def pack_bvh(bvh: BVH4, config: DatapathConfig | None = None) -> PackedBVH:
+    """BVH -> the traversal kernel's operands; the session's ``cuda``
+    backend calls it once per scene version.  Each node above the leaf
+    parents gets one record of its ``arity`` children's boxes, rows
+    lo.x | lo.y | lo.z | hi.x | hi.y | hi.z of ``arity`` bounds in
+    ``config.packed_box_dtype``, as :func:`pack_bvh_rows` casts them (a box
+    test reads a record with 16 B loads); no leaf box is kept (no record
+    depends on a leaf parent's box test), nor the root's own box (the root
+    is pre-pushed, never tested).  Each leaf slot gets its triangle's 9
+    vertex floats and its index (zeros and -1 in an empty slot), in
+    leaf-slot order."""
+    config = resolve_config(config)
+    arity = config.arity
+    depth = depth_of(bvh, arity)
     n_inner = level_offset(depth - 1, arity)
     n_slots = arity**depth
-    child = torch.stack([rows.nlo, rows.nhi])[:, :, 1:1 + arity * n_inner]
-    kids = child.reshape(2, 3, n_inner, arity).permute(2, 0, 1, 3).reshape(n_inner, 6 * arity)
-    idx = rows.leaf[0, :n_slots]
-    verts = rows.tris.index_select(1, idx.clamp(min=0))  # (9, n_slots)
+    box_dtype = config.packed_box_dtype
+    child = [b[1:1 + arity * n_inner].to(box_dtype).reshape(n_inner, arity, 3).transpose(1, 2)
+             for b in (bvh.node_lo, bvh.node_hi)]
+    kids = torch.cat(child, dim=1).reshape(n_inner, 6 * arity)
+    idx = bvh.leaf_tri[:n_slots].to(torch.int32)
+    tri = bvh.triangles
+    # gathered as vertex rows, then transposed: on the H100 twice as fast
+    # as gathering the (n, 9) soup's rows
+    verts = torch.cat([tri.a.T, tri.b.T, tri.c.T]).index_select(1, idx.clamp(min=0))
     verts = torch.where(idx >= 0, verts, torch.zeros((), dtype=verts.dtype, device=verts.device))
     pad = torch.zeros((SLOT_WORDS - SLOT_INDEX - 1, n_slots), dtype=verts.dtype,
                       device=verts.device)
-    slots = torch.cat([verts, idx.view(torch.float32)[None], pad]).T.contiguous()
-    return PackedBVH(kids.contiguous(), slots)
-
-
-def pack_bvh(bvh: BVH4, config: DatapathConfig | None = None) -> PackedBVH:
-    """BVH -> the traversal kernel's operands: the reference's rows
-    (:func:`pack_bvh_rows`), then :func:`lay_out_rows`.  The session's
-    ``cuda`` backend calls it once per scene version."""
-    config = resolve_config(config)
-    rows = pack_bvh_rows(bvh, config)
-    return lay_out_rows(rows, depth_of(bvh, config.arity), config.arity)
+    slots = torch.cat([verts, idx.view(torch.float32)[None], pad]).T
+    return PackedBVH(kids.contiguous(), slots.contiguous())
 
 
 def unpack_bvh(packed: PackedBVH, depth: int, arity: int = 4) -> BVH4:
@@ -177,35 +175,6 @@ def unpack_bvh(packed: PackedBVH, depth: int, arity: int = 4) -> BVH4:
                 leaf_perm=leaf)
 
 
-@functools.lru_cache(maxsize=None)
-def _spread6_table(device: torch.device) -> torch.Tensor:
-    """Every 10-bit value with bit i moved to bit 6 i (int64), built once
-    per device: a gather spreads one of :func:`ray_order`'s 6 axes."""
-    v = torch.arange(1024, dtype=torch.int64, device=device)
-    out = torch.zeros_like(v)
-    for i in range(10):
-        out |= ((v >> i) & 1) << (6 * i)
-    return out
-
-
-def ray_order(rays: Ray) -> torch.Tensor:
-    """A ray schedule for the traversal kernel (:func:`traverse_launch`'s
-    ``order``): the (n,) i32 permutation that sorts the rays, stably, along
-    the 60-bit Z-order curve of their origin and direction (6 axes of 10
-    bits), each axis scaled to the batch's own range, so a warp's rays
-    start near each other and point alike.  A NaN coordinate counts as the
-    range's low end.  :func:`traverse_packed` does not use it: on the H100
-    the sort costs more than the kernel saves (``chip_smoke.py`` phase 6)."""
-    x = torch.cat([rays.origin, rays.direction], dim=1)
-    lo, hi = x.amin(dim=0), x.amax(dim=0)
-    diff = hi - lo
-    extent = torch.where(diff > 1e-12, diff, torch.full_like(diff, 1e-12))
-    cell = torch.nan_to_num((x - lo) / extent * 1024.0, nan=0.0).clamp(0.0, 1023.0)
-    spread = _spread6_table(x.device)[cell.to(torch.int64)]
-    shift = torch.arange(6, dtype=torch.int64, device=x.device)
-    return torch.argsort((spread << shift).sum(dim=1), stable=True).to(torch.int32)
-
-
 def _empty_record(device) -> WavefrontRecord:
     z = torch.zeros((0,), dtype=torch.int32, device=device)
     return WavefrontRecord(t=torch.zeros((0,), device=device), tri_index=z,
@@ -223,90 +192,53 @@ def traverse_packed(packed: PackedBVH, rays: Ray, depth: int, *,
     operands (:func:`pack_bvh` under the same ``config``).  Same contract
     as ``trace_wavefront``, whose record it returns bit for bit, at every
     arity, box dtype and stack size.  The rays run in the caller's order:
-    :func:`ray_order`'s schedule, its sort included, is slower for every
-    ray type on the H100 (``chip_smoke.py`` phase 6 times both)."""
+    a Z-order schedule, its sort included, was slower for every ray type
+    on the H100."""
     if ray_type not in RAY_TYPES:
         raise ValueError(f"ray_type must be one of {RAY_TYPES}, got {ray_type!r}")
     config = resolve_config(config)
+    arity = config.arity
     if t_min is None:
         t_min = default_t_min(ray_type)
     if max_rounds is None:
-        max_rounds = level_offset(depth, config.arity)
+        max_rounds = level_offset(depth, arity)
     n = rays.origin.shape[0]
     device = rays.origin.device
     if n == 0:
         return _empty_record(device)
-    ray_op = pack_rays(rays, ceil_to(n, LANES))
+    n_pad = ceil_to(n, LANES)
+    ray_op = pack_rays(rays, n_pad)
     if not ray_op.is_cuda:
-        return trace_wavefront(unpack_bvh(packed, depth, config.arity),
-                               unpack_rays(ray_op, n), depth, ray_type=ray_type,
-                               t_min=t_min, max_rounds=max_rounds, config=config)
-    return traverse_launch(packed, ray_op, None, n, depth, ray_type=ray_type,
-                           t_min=t_min, max_rounds=max_rounds, config=config)
+        return trace_wavefront(unpack_bvh(packed, depth, arity), unpack_rays(ray_op, n),
+                               depth, ray_type=ray_type, t_min=t_min,
+                               max_rounds=max_rounds, config=config)
 
-
-class TraverseCall(NamedTuple):
-    """One prepared call of ``rayflex_traverse`` (see :func:`traverse_call`)."""
-
-    args: tuple  # the C entry point's arguments, all but the stream
-    outputs: tuple  # t f32, tri, quadbox_jobs, triangle_jobs, stack_overflow i32
-    scratch: torch.Tensor | None  # the device stack, held as long as the call
-
-    def record(self) -> WavefrontRecord:
-        """The outputs as a record.  ``rounds`` is ``max(quadbox_jobs)``: a
-        ray is active from round 0 for exactly ``quadbox_jobs`` consecutive
-        rounds."""
-        t, tri, qb, ntri, ovf = self.outputs
-        return WavefrontRecord(t=t, tri_index=tri, hit=tri >= 0, quadbox_jobs=qb,
-                               triangle_jobs=ntri, stack_overflow=ovf > 0,
-                               rounds=qb.max())
-
-
-def traverse_call(packed: PackedBVH, ray_op: torch.Tensor, order: torch.Tensor | None,
-                  n: int, depth: int, *, ray_type: str, t_min: float, max_rounds: int,
-                  config: DatapathConfig) -> TraverseCall:
-    """Check the operands of one traversal launch and allocate its outputs:
-    ``n`` rays of the ``(16, n_pad)`` operand ``ray_op`` on packed CUDA
-    operands, served in ``order`` (None: the caller's)."""
-    arity = config.arity
     f32, i32 = torch.float32, torch.int32
     n_inner = level_offset(depth - 1, arity)
-    ptrs = [nvcc.check_cuda("rays", ray_op, f32, (N_RAY_ROWS, ceil_to(n, LANES))),
-            0 if order is None else nvcc.check_cuda("order", order, i32, (n,)),
-            nvcc.check_cuda("kids", packed.kids, config.packed_box_dtype,
-                            (n_inner, 6 * arity)),
-            nvcc.check_cuda("slots", packed.slots, f32, (arity**depth, SLOT_WORDS))]
-    if any(p % 16 for p in ptrs[2:]):
+    ptr_rays = nvcc.check_cuda("rays", ray_op, f32, (N_RAY_ROWS, n_pad))
+    ptr_kids = nvcc.check_cuda("kids", packed.kids, config.packed_box_dtype,
+                               (n_inner, 6 * arity))
+    ptr_slots = nvcc.check_cuda("slots", packed.slots, f32, (arity**depth, SLOT_WORDS))
+    if ptr_kids % 16 or ptr_slots % 16:
         raise ValueError("the packed tree's operands must be 16-byte aligned")
-    device = ray_op.device
-    outputs = (torch.empty((n,), dtype=f32, device=device),
-               *(torch.empty((n,), dtype=i32, device=device) for _ in range(4)))
+    t = torch.empty((n,), dtype=f32, device=device)
+    tri = torch.empty((n,), dtype=i32, device=device)
+    qb = torch.empty((n,), dtype=i32, device=device)
+    ntri = torch.empty((n,), dtype=i32, device=device)
+    ovf = torch.empty((n,), dtype=i32, device=device)
     # a stack deeper than the kernel's local array lives in device scratch
     scratch = (torch.empty((config.stack_size, n), dtype=i32, device=device)
                if config.stack_size > LOCAL_STACK else None)
-    args = (ptrs[0], ray_op.shape[1], n, *ptrs[1:], n_inner, int(max_rounds),
-            int(ray_type != "closest"), float(t_min), config.stack_size, arity,
-            int(config.packed_box_dtype == torch.bfloat16),
-            0 if scratch is None else scratch.data_ptr(),
-            *(o.data_ptr() for o in outputs))
-    return TraverseCall(args, outputs, scratch)
-
-
-def traverse_launch(packed: PackedBVH, ray_op: torch.Tensor, order: torch.Tensor | None,
-                    n: int, depth: int, *, ray_type: str = "closest",
-                    t_min: float | None = None, max_rounds: int | None = None,
-                    config: DatapathConfig | None = None) -> WavefrontRecord:
-    """One launch of the traversal kernel on packed CUDA operands (see
-    :func:`traverse_call`)."""
-    config = resolve_config(config)
-    if t_min is None:
-        t_min = default_t_min(ray_type)
-    if max_rounds is None:
-        max_rounds = level_offset(depth, config.arity)
-    call = traverse_call(packed, ray_op, order, n, depth, ray_type=ray_type,
-                         t_min=t_min, max_rounds=max_rounds, config=config)
-    nvcc.launch("rayflex_traverse", *call.args)
-    return call.record()
+    nvcc.launch("rayflex_traverse", ptr_rays, n_pad, n, ptr_kids, ptr_slots, n_inner,
+                int(max_rounds), int(ray_type != "closest"), float(t_min),
+                config.stack_size, arity, int(config.packed_box_dtype == torch.bfloat16),
+                0 if scratch is None else scratch.data_ptr(),
+                t.data_ptr(), tri.data_ptr(), qb.data_ptr(), ntri.data_ptr(),
+                ovf.data_ptr())
+    # rounds: a ray is active from round 0 for exactly quadbox_jobs rounds
+    return WavefrontRecord(t=t, tri_index=tri, hit=tri >= 0, quadbox_jobs=qb,
+                           triangle_jobs=ntri, stack_overflow=ovf > 0,
+                           rounds=qb.max())
 
 
 def traverse_fused(bvh: BVH4, rays: Ray, depth: int, *,

@@ -32,8 +32,7 @@ from repro_torch.kernels.raybox import raybox, raybox_plain
 from repro_torch.kernels.raytri import raytri, raytri_plain
 from repro_torch.kernels.common import LANES, ROW_K, ROW_MASK, ROW_RESET, ROW_VEC_A
 from repro_torch.kernels.traverse import (neighbor_launch, neighbor_packed, pack_bvh,
-                                          pack_point_bvh, pack_rays, ray_order,
-                                          traverse_launch, traverse_packed)
+                                          pack_point_bvh, pack_rays, traverse_packed)
 from repro_torch.kernels.unified import unified, unified_plain
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
@@ -495,7 +494,7 @@ def test_traverse_entry_point_takes_every_stack_size(cuda, stack):
 
     def call(scratch):
         return lib.rayflex_traverse(
-            ray_op.data_ptr(), ray_op.shape[1], n, None, packed.kids.data_ptr(),
+            ray_op.data_ptr(), ray_op.shape[1], n, packed.kids.data_ptr(),
             packed.slots.data_ptr(), (4**(sc.depth - 1) - 1) // 3, (4**sc.depth - 1) // 3,
             0, ctypes.c_float(0.0), stack, 4, 0, scratch, *(o.data_ptr() for o in outs),
             stream)
@@ -515,27 +514,26 @@ def test_traverse_entry_point_takes_every_stack_size(cuda, stack):
                                  "bvh8_s64_fp32_fp32", "bvh8_s64_bf16_fp32"])
 def test_traverse_kernel_every_variant_in_any_order(cuda, tag, stack):
     """Each of the kernel's 8 variants (arity x node-box type x stack home)
-    bit-equal to ``trace_wavefront`` on every field, with the rays served in
-    the caller's order, a random order and ``ray_order``'s, for every ray
-    type, with ``t_min`` and ``max_rounds``; the 2-slot stack overflows."""
+    bit-equal to ``trace_wavefront`` on every field, on the batch as made
+    and on the batch in a random order, for every ray type, with ``t_min``
+    and ``max_rounds``; the 2-slot stack overflows."""
     sc, rays = _twin_scene(cuda, tag, stack)
     packed = pack_bvh(sc.bvh, sc.config)
     n = rays.origin.shape[0]
-    ray_op = pack_rays(rays, -(-n // LANES) * LANES)
-    shuffled = torch.randperm(n, generator=torch.Generator().manual_seed(23))
-    orders = (None, shuffled.to(torch.int32).to(cuda), ray_order(rays))
+    shuffled = torch.randperm(n, generator=torch.Generator().manual_seed(23)).to(cuda)
+    batches = (rays, type(rays)(*(x[shuffled] for x in rays)))
     before = nvcc.launch_counts().get("traverse", 0)
     overflowed = False
     cases = (("closest", {}), ("any", {}), ("shadow", {}), ("closest", {"t_min": 2.0}),
              ("closest", {"max_rounds": 5}), ("any", {"t_min": 1.0, "max_rounds": 7}))
     for ray_type, kw in cases:
-        want = trace_wavefront(sc.bvh, rays, sc.depth, ray_type=ray_type, config=sc.config,
-                               **kw)
-        for order in orders:
-            got = traverse_launch(packed, ray_op, order, n, sc.depth, ray_type=ray_type,
+        for batch in batches:
+            want = trace_wavefront(sc.bvh, batch, sc.depth, ray_type=ray_type,
+                                   config=sc.config, **kw)
+            got = traverse_packed(packed, batch, sc.depth, ray_type=ray_type,
                                   config=sc.config, **kw)
             for f in want._fields:
                 assert _bits_equal(getattr(got, f), getattr(want, f)), (ray_type, kw, f)
-        overflowed |= bool(want.stack_overflow.any())
+            overflowed |= bool(want.stack_overflow.any())
     assert overflowed == (stack == 2)
-    assert nvcc.launch_counts()["traverse"] == before + len(cases) * len(orders)
+    assert nvcc.launch_counts()["traverse"] == before + len(cases) * len(batches)

@@ -1,11 +1,12 @@
-"""The traversal kernel's layout and schedule, held against the reference.
+"""The traversal kernel's tree layout, held against the reference.
 
-``kernels/traverse.py`` packs a tree for ``csrc/traverse.cu`` in two
-steps: the reference's operand rows (``pack_bvh_rows``), then a layout for
-16 B vector loads (``lay_out_rows``): one record of child boxes per node
-above the leaf parents, no leaf box, and each leaf slot's triangle with
-its index.  On CPU operands ``traverse_packed`` inverts the second step
-(``unpack_bvh``) and runs ``trace_wavefront``.  Everything here is exact
+``kernels/traverse.py`` lays a tree out for ``csrc/traverse.cu``'s 16 B
+vector loads (``pack_bvh``): one record of child boxes per node above the
+leaf parents, no leaf box, and each leaf slot's triangle with its index.
+The tests hold it to the reference's operand rows (``pack_bvh_rows``,
+which ``tests/test_torch_trace.py`` holds to the reference's own).  On CPU
+operands ``traverse_packed`` inverts the layout (``unpack_bvh``) and runs
+``trace_wavefront``.  Everything here is exact
 but ``t`` against the reference, which is held to ``_t_tolerance``
 (``tests/test_torch_trace.py`` says why).
 """
@@ -21,8 +22,8 @@ from repro_torch.api import RAY_TYPES, Scene, make_ray
 from repro_torch.convert import config_from_tag
 from repro_torch.core.bvh import level_offset, num_nodes
 from repro_torch.core.wavefront import trace_wavefront
-from repro_torch.kernels.traverse import (SLOT_INDEX, pack_bvh, pack_bvh_rows, ray_order,
-                                          traverse_packed, unpack_bvh)
+from repro_torch.kernels.traverse import (SLOT_INDEX, pack_bvh, pack_bvh_rows, traverse_packed,
+                                          unpack_bvh)
 from test_torch_trace import (_assert_record, _assert_same, _carried, _np,
                               _random_scene)
 
@@ -165,21 +166,24 @@ def test_leaf_boxes_never_matter(tag):
                                      ray_type=ray_type, config=config), want, ray_type)
 
 
-def test_ray_order_is_a_stable_z_order_permutation():
-    """``ray_order`` is a permutation; equal rays keep the caller's order;
-    one origin and a 4 x 4 grid of directions give the grid's Z-order."""
-    rng = np.random.default_rng(5)
-    org = rng.uniform(-3, 3, (300, 3)).astype(np.float32)
-    dirs = rng.normal(size=(300, 3)).astype(np.float32)
-    org[100:140], dirs[100:140] = org[100], dirs[100]  # 40 equal rays
-    order = ray_order(make_ray(org, dirs, device="cpu"))
-    assert order.dtype == torch.int32
-    assert torch.equal(torch.sort(order).values, torch.arange(300, dtype=torch.int32))
-    ties = order[(order >= 100) & (order < 140)]
-    assert torch.equal(ties, torch.arange(100, 140, dtype=torch.int32))
-
-    ys, xs = np.meshgrid(np.arange(4), np.arange(4), indexing="ij")  # raster order
-    grid = np.stack([xs.ravel(), ys.ravel(), np.ones(16)], 1).astype(np.float32)
-    order = ray_order(make_ray(np.zeros((16, 3), np.float32), grid, device="cpu"))
-    # x is axis 3 and y axis 4 of the key: x's bit below y's at each level
-    assert order.tolist() == [0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15]
+@pytest.mark.parametrize("tag", ["bvh4_s64_fp32_fp32", "bvh8_s64_bf16_compressed"])
+def test_a_tree_whose_root_is_the_leaf_parent(tag):
+    """A soup that fits one leaf parent: the layout holds no child record
+    (the root is pre-pushed, its box never tested), every slot in the
+    leaf table's order, and ``traverse_packed`` on it traces as
+    ``trace_wavefront`` on the tree, for every ray type."""
+    config = config_from_tag(tag)
+    tris, org, dirs, ext = _random_scene(2, n_tri=3, n_rays=64)
+    sc = Scene.from_triangles(tris, config=config, device="cpu")
+    rays = make_ray(org, dirs, ext, device="cpu")
+    assert sc.depth == 1
+    packed = pack_bvh(sc.bvh, config)
+    assert packed.kids.shape == (0, 6 * config.arity)
+    assert packed.kids.dtype == config.packed_box_dtype
+    assert torch.equal(packed.slots.view(torch.int32)[:, SLOT_INDEX], sc.bvh.leaf_tri)
+    for ray_type in RAY_TYPES:
+        want = trace_wavefront(sc.bvh, rays, 1, ray_type=ray_type, config=config)
+        if ray_type == "closest":
+            assert int(want.hit.sum()) > 0
+        _assert_same(traverse_packed(packed, rays, 1, ray_type=ray_type, config=config),
+                     want, ray_type)

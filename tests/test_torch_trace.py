@@ -269,6 +269,11 @@ def test_pack_unpack_roundtrip_and_lane_padding():
     assert torch.equal(back.node_lo[1:inner], tb.node_lo[1:inner])
     assert bool(back.node_lo[0].isnan().all() and back.node_lo[inner:].isnan().all())
     assert torch.equal(back.leaf_tri, tb.leaf_tri)
+    # what the layout drops changes no record: the unpacked tree traces as
+    # the tree itself, every field, for every ray type
+    for ray_type in RAY_TYPES:
+        _assert_same(trace_wavefront(back, tr, res.depth, ray_type=ray_type),
+                     trace_wavefront(tb, tr, res.depth, ray_type=ray_type), ray_type)
 
 
 def test_dispatch_plan_and_row_helpers():
