@@ -108,6 +108,23 @@ Phases (any failure exits non-zero and prints no result line):
     leaf slots' bytes, the kernel's bound (distinct bytes against
     job-counted operations; also with the codec's analytic box bytes), its
     share at the unfused f32 rate and the sectors its jobs gather;
+12. the query server (``repro_torch.serving.QueryServer``) over one engine
+    holding clustered-1M, the sift-shape index and cloud-1M: a trace of
+    ``SERVE_REQUESTS`` requests drawn with ``SEED`` (half closest traces
+    and a fifth shadow traces of 256-4096 of phase 5's camera rays and
+    their shadow rays, a fifth ``nearest`` k=10 of 1-64 sift-shape queries
+    on the ``cuda`` backend, a tenth ``nearest`` k=16 of 64-1024 of the
+    cloud's points on ``tree_cuda``), served closed loop (every request
+    at once), then open loop with Poisson arrivals at 50% and 90% of the
+    closed loop's rate, then closed loop with telemetry on.  Printed per
+    run: requests/s, latency p50 / p99 (overall and per kind), requests a
+    batch, mean fill, flush reasons.  Gates: every response of every run
+    bit-equal to a direct engine call on its own rows (a trace's
+    ``rounds`` its own ``max(quadbox_jobs)``); the closed-loop run
+    launches the traversal, distance and neighbour kernels; a
+    ``CompileTracker`` reads 0 over each warm open-loop run; the
+    telemetry-on run's Chrome trace is written to ``build/`` and its
+    event count printed;
 
 then one JSON ``kernels`` line (launches on each kernel's path, times,
 errors, bounds, library times) and the ``{"ok": true, "device": ...}``
@@ -219,6 +236,19 @@ TWIN_CONFIGS = tuple((b, t) for b in ("lbvh", "sah") for t in GOLDEN_CONFIGS) + 
 SORT_COMPARATORS = {4: 5, 8: 19}
 #: a soup whose vertex coordinates are +-0.0 at random (30%), the rest N(0, 1)
 SIGNED_ZERO_SEED, SIGNED_ZERO_TRIS, SIGNED_ZERO_SHARE = SEED + 7, 4096, 0.3
+# phase 12: the query server over one engine, a mixed trace of requests
+# drawn with SEED: (kind, share, rows low, rows high) per request kind
+SERVE_REQUESTS = 2000
+SERVE_MIX = (("closest", 0.5, 256, 4096), ("shadow", 0.2, 256, 4096),
+             ("brute nearest", 0.2, 1, 64), ("tree nearest", 0.1, 64, 1024))
+#: each kind's call, the same on the server and the engine: (method, args,
+#: keyword args) after the payload
+SERVE_CALLS = {"closest": ("trace", (), {}), "shadow": ("trace", ("shadow",), {}),
+               "brute nearest": ("nearest", (10,), {"backend": "cuda"}),
+               "tree nearest": ("nearest", (16,), {"backend": "tree_cuda"})}
+SERVE_MAX_BATCH_ROWS, SERVE_MAX_WAIT = 4096, 2e-3
+#: open-loop offered rates, as shares of the closed loop's sustained rate
+SERVE_OPEN_SHARES = (0.5, 0.9)
 
 
 def fail(msg: str) -> None:
@@ -1946,6 +1976,194 @@ def phase_twins(torch):
     return rows
 
 
+def serve_requests(rng, pools: dict) -> list:
+    """The phase-12 trace: ``SERVE_REQUESTS`` (kind, payload) pairs drawn
+    with ``rng`` by :data:`SERVE_MIX`, each payload a run of rows at a
+    random offset of its kind's pool (camera rays, their shadow rays,
+    sift-shape queries, the cloud's points), on the card."""
+    kinds = rng.choice(len(SERVE_MIX), SERVE_REQUESTS, p=[m[1] for m in SERVE_MIX])
+    out = []
+    for k in kinds:
+        name, _, lo, hi = SERVE_MIX[k]
+        pool = pools[name]
+        total = (pool[0] if isinstance(pool, tuple) else pool).shape[0]
+        n = int(rng.integers(lo, hi + 1))
+        a = int(rng.integers(0, total - n + 1))
+        rows = slice(a, a + n)
+        out.append((name, type(pool)(*(x[rows] for x in pool)) if isinstance(pool, tuple)
+                    else pool[rows]))
+    return out
+
+
+def phase_serving(torch, sift_db, sift_q):
+    """Phase 12: the mixed request trace served by ``QueryServer`` over one
+    engine on the card, closed loop, then open loop (Poisson arrivals) at
+    :data:`SERVE_OPEN_SHARES` of the closed loop's rate, then closed loop
+    again with telemetry on."""
+    import asyncio
+
+    from repro_torch import obs
+    from repro_torch.api import PointCloudScene, QueryEngine, Scene, VectorIndex, make_ray
+    from repro_torch.core.build.quality import clustered_soup
+    from repro_torch.kernels import nvcc
+    from repro_torch.serving import QueryServer
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED)
+    tri = clustered_soup(np.random.default_rng(SEED), N_CLUSTERS, PER_CLUSTER, device="cuda")
+    points = clustered_soup(np.random.default_rng(SEED + 3), TREE_CLUSTERS,
+                            TREE_PER_CLUSTER, device="cuda").a
+    scene = Scene.from_triangles(tri, device="cuda")
+    engine = QueryEngine(scene=scene, index=VectorIndex.from_database(sift_db, device="cuda"),
+                         cloud=PointCloudScene.from_points(points, device="cuda"),
+                         chunk_size=CHUNK)
+    primary = make_ray(*camera_rays(scene), device="cuda")
+    hits = engine.trace(primary)
+    idx = torch.nonzero(hits.hit).squeeze(1)
+    p = primary.origin[idx] + hits.t[idx, None] * primary.direction[idx]
+    to_light = torch.tensor([9.0, 11.0, -13.0], device="cuda") - p
+    dist = torch.linalg.vector_norm(to_light, dim=1)
+    shadow = make_ray(p, to_light / dist[:, None], dist, device="cuda")
+    pools = {"closest": primary, "shadow": shadow,
+             "brute nearest": torch.as_tensor(sift_q, device="cuda"), "tree nearest": points}
+    reqs = serve_requests(rng, pools)
+    kinds = np.asarray([kind for kind, _ in reqs])
+    counts = {m[0]: int((kinds == m[0]).sum()) for m in SERVE_MIX}
+    say(f"phase 12 engine over clustered-1M ({tri.a.shape[0]} triangles), sift-shape "
+        f"({SIFT_N} x {SIFT_D}) and cloud-1M ({points.shape[0]} points), chunk_size "
+        f"{CHUNK}; {len(reqs)} requests drawn with seed {SEED}: "
+        + ", ".join(f"{n} {k}" for k, n in counts.items()))
+
+    def call(target, kind, payload):
+        """``kind``'s query on ``target``: the server (a coroutine) or the
+        engine (a direct call)."""
+        method, args, kw = SERVE_CALLS[kind]
+        return getattr(target, method)(payload, *args, **kw)
+
+    # ---- every engine key the server's row ladder can ask for, seen once ----
+    for kind, *_ in SERVE_MIX:
+        pool = pools[kind]
+        total = (pool[0] if isinstance(pool, tuple) else pool).shape[0]
+        rows = 1
+        while rows <= 2 * SERVE_MAX_BATCH_ROWS:
+            take = torch.arange(rows, device="cuda") % total
+            call(engine, kind, type(pool)(*(x[take] for x in pool))
+                 if isinstance(pool, tuple) else pool[take])
+            rows *= 2
+    t0 = time.perf_counter()
+    want = [call(engine, kind, payload) for kind, payload in reqs]
+    torch.cuda.synchronize()
+    say(f"phase 12 direct engine calls, one a request: {time.perf_counter() - t0:.3f} s")
+
+    async def run(arrivals):
+        """Serve every request, submitted at ``arrivals`` seconds after the
+        start (None: all at once); each latency from its arrival to its
+        response."""
+        lat = np.zeros(len(reqs))
+        async with QueryServer(engine, max_batch_rows=SERVE_MAX_BATCH_ROWS,
+                               max_wait=SERVE_MAX_WAIT) as server:
+            start = time.perf_counter()
+
+            async def one(i, kind, payload, at):
+                res = await call(server, kind, payload)
+                lat[i] = time.perf_counter() - (start + at)
+                return res
+
+            tasks = []
+            for i, (kind, payload) in enumerate(reqs):
+                at = 0.0 if arrivals is None else float(arrivals[i])
+                delay = start + at - time.perf_counter()
+                if delay > 0:
+                    await asyncio.sleep(delay)
+                tasks.append(asyncio.ensure_future(one(i, kind, payload, at)))
+            got = await asyncio.gather(*tasks)
+            makespan = time.perf_counter() - start
+            return got, lat, makespan, server.stats()
+
+    def check(label, got):
+        for i, ((kind, _), g, w) in enumerate(zip(reqs, got, want)):
+            for a, b in zip(g, w):
+                if a.dtype == torch.float32:
+                    a, b = bits(a), bits(b)
+                if a.shape != b.shape or not torch.equal(a, b):
+                    fail(f"phase 12 {label}: request {i} ({kind}) differs from a "
+                         "direct engine call on its rows")
+
+    def report(label, lat, makespan, stats, offered=None):
+        n_batches = sum(s.batches for s in stats.values())
+        flushes = {r: sum(getattr(s, f"flush_{r}") for s in stats.values())
+                   for r in ("full", "timer", "deadline", "drain")}
+        rows = sum(s.mean_batch_rows * s.batches for s in stats.values())
+        padded = sum(s.mean_batch_rows * s.batches / s.mean_fill
+                     for s in stats.values() if s.mean_fill)
+        say(f"phase 12 {label}: " + ("" if offered is None else
+                                     f"offered {offered:.3f} requests/s, ")
+            + f"{len(reqs) / makespan:.3f} requests/s over {makespan:.3f} s; latency "
+            f"p50 {np.percentile(lat, 50) * 1e3:.3f} ms, p99 "
+            f"{np.percentile(lat, 99) * 1e3:.3f} ms; {n_batches} batches, "
+            f"{len(reqs) / n_batches:.3f} requests a batch, mean fill "
+            f"{rows / padded:.4f}; flushes " + ", ".join(f"{r} {n}" for r, n in flushes.items()))
+        for method, st in sorted(stats.items()):
+            say(f"  {method}: {st.requests} requests in {st.batches} batches, "
+                f"{st.requests_per_batch:.3f} requests and {st.mean_batch_rows:.1f} rows a "
+                f"batch, mean fill {st.mean_fill:.4f}")
+        for kind, *_ in SERVE_MIX:
+            mine = lat[kinds == kind] * 1e3
+            say(f"  {kind}: latency p50 {np.percentile(mine, 50):.3f} ms, p99 "
+                f"{np.percentile(mine, 99):.3f} ms")
+
+    # ---- closed loop: the counted drive of the path -------------------------
+    torch.cuda.synchronize()
+    nvcc.reset_launches()
+    got, lat, makespan, stats = asyncio.run(run(None))
+    launches = nvcc.launch_counts()
+    for name in ("traverse", "distance", "neighbor"):
+        if launches.get(name, 0) < 1:
+            fail(f"phase 12: the served run launched no {name} kernel ({launches})")
+    check("closed loop", got)
+    del got
+    rate = len(reqs) / makespan
+    report("closed loop, every request submitted at once", lat, makespan, stats)
+    say("phase 12 kernel launches in the closed-loop run: "
+        + ", ".join(f"{k} {v}" for k, v in sorted(launches.items())))
+
+    # ---- open loop: Poisson arrivals at shares of the closed loop's rate ----
+    for share in SERVE_OPEN_SHARES:
+        offered = share * rate
+        arrivals = np.cumsum(rng.exponential(1.0 / offered, len(reqs)))
+        with obs.CompileTracker() as tracker:
+            got, lat, makespan, stats = asyncio.run(run(arrivals))
+        if tracker.compiles != 0:
+            fail(f"phase 12: the warm open-loop run at {share:.0%} compiled "
+                 f"{tracker.compiles} times")
+        check(f"open loop at {share:.0%}", got)
+        del got
+        report(f"open loop at {share:.0%} of it (Poisson), {tracker.compiles} compiles",
+               lat, makespan, stats, offered)
+
+    # ---- telemetry on: the same bits, span chains, a Chrome trace ------------
+    obs.default_buffer().clear()
+    obs.enable()
+    try:
+        got, lat, makespan, stats = asyncio.run(run(None))
+        snap = obs.snapshot()
+        trace_path = ROOT / "build" / "phase12_trace.json"
+        trace_path.parent.mkdir(parents=True, exist_ok=True)
+        n_events = obs.export_chrome_trace(str(trace_path))
+    finally:
+        obs.disable()
+    check("closed loop, telemetry on", got)
+    del got
+    chains = {s.tid for s in obs.default_buffer().spans() if s.cat == "serving"}
+    obs.default_buffer().clear()
+    report("closed loop, telemetry on (every response bit-equal to telemetry off)",
+           lat, makespan, stats)
+    say(f"phase 12 Chrome trace: {n_events} events in {trace_path.relative_to(ROOT)}, "
+        f"{len(chains)} request span chains; snapshot derived "
+        f"{json.dumps(snap['derived'])}, jit compiles {snap['jit']['compiles']}")
+    say(f"phase 12 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_dir():
         fail(f"{SRC / 'repro_torch'} or {GOLDEN} missing: run from a "
@@ -2008,6 +2226,7 @@ def main() -> None:
     kernels += phase_stream(torch, stage_jobs, vectors)
     phase_dynamic(torch)
     kernels += phase_twins(torch)
+    phase_serving(torch, vectors[0], vectors[1])
 
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -47,18 +47,26 @@ backend's context once per scene or cloud version, so an animated scene
 (:meth:`Scene.refit`, :meth:`PointCloudScene.refit`) misses no key per
 frame and re-packs once.  Every :class:`~repro_torch.core.bvh.DatapathConfig`
 (arity 4 or 8, any stack size, the bf16 and compressed node codecs) and
-both builders (``"lbvh"``, ``"sah"``) serve every backend.  Not ported
-yet: the fan-out over several cards.
+both builders (``"lbvh"``, ``"sah"``) serve every backend.  While
+telemetry is on (``repro_torch.obs.enable()``), every query records its
+wall time, rows, fan-out and job totals into the default registry, and
+every key the engine has not seen counts as a compile event; while it is
+off, a query pays one attribute check.  Not ported yet: the fan-out over
+several cards.
 """
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
 from ..kernels.common import LANES
+from ..obs.compile import record_compile
+from ..obs.metrics import default_registry as _obs_registry
+from ..obs.trace import annotate as _obs_annotate
 from .build import build as build_structure
 from .build import refit as refit_bvh
 from .build import tree_stats
@@ -77,6 +85,19 @@ from .neighbor import (NeighborRecord, empty_neighbors, neighbor_wavefront,
 from .traversal import trace_rays
 from .types import Ray, Triangle, as_f32
 from .wavefront import RAY_TYPES, SHADOW_T_MIN, default_t_min, trace_wavefront
+
+
+# Telemetry (DESIGN.md §11): instruments resolved once at import, so a
+# recording site is one attribute check + branch while the default
+# registry is disabled (the default), and records nothing; results are
+# bit-identical either way (tests/test_torch_obs.py).
+_OBS = _obs_registry()
+_OBS_CACHE_HITS = _OBS.counter("engine.cache.hits")
+_OBS_CACHE_MISSES = _OBS.counter("engine.cache.misses")
+_OBS_ROWS_REAL = _OBS.counter("engine.rows.real")
+_OBS_ROWS_PADDED = _OBS.counter("engine.rows.padded")
+_OBS_CHUNKS = _OBS.counter("engine.chunks")
+_OBS_SHARDS = _OBS.gauge("engine.shards")
 
 
 class TraceResult(NamedTuple):
@@ -623,10 +644,40 @@ class QueryEngine:
         adds no entry per frame."""
         if self._seen.get(key) == version:
             self._hits += 1
+            _OBS_CACHE_HITS.inc()
         else:
             self._misses += 1
+            _OBS_CACHE_MISSES.inc()
+            record_compile()
             self._seen[key] = version
         return build()
+
+    def _obs_record(self, method: str, backend: str, plan: ExecPlan,
+                    device: torch.device, scope: str, compute, jobs=()):
+        """``compute()`` recorded into the default registry; callers call
+        ``compute()`` directly while telemetry is off.  Records the wall
+        time to a per-method histogram (after synchronizing ``device``, so
+        the clock covers the device work), real vs padded rows (the
+        pad-waste numerator and denominator of ``obs.snapshot()``), chunk
+        and shard fan-out, a per-(method, backend) call counter, and the
+        totals of the result's per-row job fields named in ``jobs`` as
+        (counter name, field) pairs."""
+        t0 = time.perf_counter()
+        with _obs_annotate(scope):
+            result = compute()
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        _OBS.histogram(f"engine.call_ms.{method}").observe(
+            (time.perf_counter() - t0) * 1e3)
+        _OBS.counter(f"engine.calls.{method}.{backend}").inc()
+        _OBS_ROWS_REAL.inc(plan.n)
+        _OBS_ROWS_PADDED.inc(plan.block * plan.n_blocks)
+        _OBS_CHUNKS.inc(plan.n_blocks)
+        _OBS_SHARDS.set(plan.shards)
+        for job_name, field in jobs:
+            _OBS.counter(f"engine.jobs.{job_name}.{backend}").inc(
+                int(getattr(result, field).sum().item()))
+        return result
 
     def _prepared(self, kind: str, name: str, owner, prepare):
         """``prepare(owner)(owner.bvh)``, once per (backend, version)."""
@@ -818,10 +869,17 @@ class QueryEngine:
                + plan.key + _elem_key(rays))
         run = self._cached_run(key, lambda: build(scene, ray_type, t_min, max_rounds))
         ctx = self._prepared("trace", name, scene, prepare)
-        outs = [run(ctx, block) for block in split_blocks(rays, plan)]
-        rounds = torch.stack([o.rounds for o in outs]).max()
-        rows = concat_rows([o[:-1] for o in outs], n)
-        return TraceResult(*rows, rounds=rounds)
+
+        def compute():
+            outs = [run(ctx, block) for block in split_blocks(rays, plan)]
+            rounds = torch.stack([o.rounds for o in outs]).max()
+            return TraceResult(*concat_rows([o[:-1] for o in outs], n), rounds=rounds)
+
+        if not _OBS.enabled:
+            return compute()
+        return self._obs_record("trace", name, plan, dev, "engine.trace", compute,
+                                jobs=(("quadbox", "quadbox_jobs"),
+                                      ("triangle", "triangle_jobs")))
 
     def occluded(self, rays: Ray, *, t_min: float = SHADOW_T_MIN,
                  backend: str | None = None, shard=None,
@@ -859,7 +917,14 @@ class QueryEngine:
             return lambda block: epilogue(score_fn(block))
 
         run = self._cached_run(key, build, self._index_version())
-        return concat_rows([run(block) for (block,) in split_blocks((q,), plan)], n)
+
+        def compute():
+            return concat_rows([run(block) for (block,) in split_blocks((q,), plan)], n)
+
+        if not _OBS.enabled:
+            return compute()
+        return self._obs_record(kind, name, plan, index.device, "engine.distance",
+                                compute)
 
     def _tree_neighbor(self, kind: str, queries, k: int, radius, name: str,
                        shard=None, chunk_size: int | None = None) -> NeighborRecord:
@@ -888,9 +953,17 @@ class QueryEngine:
         key = ("neighbor", name, mode, kk) + plan.key + _elem_key(rays)
         run = self._cached_run(key, lambda: build(cloud, mode, kk))
         ctx = self._prepared("neighbor", name, cloud, prepare)
-        outs = [run(ctx, block) for block in split_blocks(rays, plan)]
-        rounds = torch.stack([o.rounds for o in outs]).max()
-        rec = NeighborRecord(*concat_rows([o[:-1] for o in outs], n), rounds=rounds)
+
+        def compute():
+            outs = [run(ctx, block) for block in split_blocks(rays, plan)]
+            rounds = torch.stack([o.rounds for o in outs]).max()
+            return NeighborRecord(*concat_rows([o[:-1] for o in outs], n), rounds=rounds)
+
+        if _OBS.enabled:
+            rec = self._obs_record(kind, name, plan, dev, "engine.neighbor", compute,
+                                   jobs=(("box", "box_jobs"), ("point", "point_jobs")))
+        else:
+            rec = compute()
         if kk < k:  # pad the clamped top-k axis back out
             pad = k - kk
             rec = rec._replace(

@@ -175,9 +175,14 @@ template <int KCAP>
 __device__ __forceinline__ void run_query(const Params& P, int r, bool valid) {
   const int q = valid ? (P.order ? __ldg(P.order + r) : r) : 0;
   float p[3];
+  // row `row` of the operand at column q, the offset in 64 bits: row 15
+  // starts past a 32-bit int above 2^31 / 15 queries
+  const auto ray_row = [&](int row) {
+    return valid ? __ldg(P.rays + static_cast<size_t>(row) * P.n_pad + q) : 0.0f;
+  };
 #pragma unroll
-  for (int d = 0; d < 3; ++d) p[d] = valid ? __ldg(P.rays + (kRowOrg + d) * P.n_pad + q) : 0.0f;
-  const float extent = valid ? __ldg(P.rays + kRowExt * P.n_pad + q) : 0.0f;
+  for (int d = 0; d < 3; ++d) p[d] = ray_row(kRowOrg + d);
+  const float extent = ray_row(kRowExt);
   const float r_sq = __fmul_rn(extent, extent);
   const float q_sq = __fadd_rn(__fadd_rn(__fmul_rn(p[0], p[0]), __fmul_rn(p[1], p[1])),
                                __fmul_rn(p[2], p[2]));

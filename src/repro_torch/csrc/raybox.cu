@@ -18,20 +18,23 @@ __global__ void raybox_kernel(const float* __restrict__ org, const float* __rest
                               int* __restrict__ idx_out, int* __restrict__ hit_out, int n) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
+  // (3 b + d) n + j reaches 12 n - 1, past a 32-bit int above 2^31 / 12
+  // jobs: offsets are taken in 64 bits
+  const size_t stride = static_cast<size_t>(n);
   float o[3], iv[3], l[4][3], h[4][3];
   bool ng[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    o[d] = org[d * n + j];
-    iv[d] = inv[d * n + j];
-    ng[d] = neg[d * n + j] > 0.5f;
+    o[d] = org[d * stride + j];
+    iv[d] = inv[d * stride + j];
+    ng[d] = neg[d * stride + j] > 0.5f;
   }
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
 #pragma unroll
     for (int d = 0; d < 3; ++d) {
-      l[b][d] = lo[(3 * b + d) * n + j];
-      h[b][d] = hi[(3 * b + d) * n + j];
+      l[b][d] = lo[(3 * b + d) * stride + j];
+      h[b][d] = hi[(3 * b + d) * stride + j];
     }
   }
   float tmin[4];
@@ -39,9 +42,9 @@ __global__ void raybox_kernel(const float* __restrict__ org, const float* __rest
   rayflex::op_quadbox(o, iv, ng, l, h, tmin, idx, hit);
 #pragma unroll
   for (int s = 0; s < 4; ++s) {
-    tmin_out[s * n + j] = tmin[s];
-    idx_out[s * n + j] = idx[s];
-    hit_out[s * n + j] = hit[s];
+    tmin_out[s * stride + j] = tmin[s];
+    idx_out[s * stride + j] = idx[s];
+    hit_out[s * stride + j] = hit[s];
   }
 }
 

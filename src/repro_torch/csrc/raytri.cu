@@ -18,16 +18,19 @@ __global__ void raytri_kernel(const float* __restrict__ org, const float* __rest
                               int* __restrict__ hit_out, int n) {
   const int j = blockIdx.x * blockDim.x + threadIdx.x;
   if (j >= n) return;
+  // d n + j reaches 3 n - 1, past a 32-bit int above 2^31 / 3 jobs:
+  // offsets are taken in 64 bits
+  const size_t stride = static_cast<size_t>(n);
   float o[3], s[3], a[3], b[3], c[3];
   int kk[3];
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    o[d] = org[d * n + j];
-    s[d] = shear[d * n + j];
-    kk[d] = k[d * n + j];
-    a[d] = va[d * n + j];
-    b[d] = vb[d * n + j];
-    c[d] = vc[d * n + j];
+    o[d] = org[d * stride + j];
+    s[d] = shear[d * stride + j];
+    kk[d] = k[d * stride + j];
+    a[d] = va[d * stride + j];
+    b[d] = vb[d * stride + j];
+    c[d] = vc[d * stride + j];
   }
   float t_num, t_denom;
   bool hit;

@@ -138,16 +138,21 @@ __global__ void __launch_bounds__(kThreads, min_blocks(ARITY)) traverse_kernel(c
   // kx, ky, kz (0..2) in bits 0-5 and the direction's sign bits in 6-8: one
   // register for the loop's life, unpacked where a branch needs them
   unsigned code = 0;
+  // row `row` of the operand at column r, the offset in 64 bits: row 15
+  // starts past a 32-bit int above 2^31 / 15 rays
+  const auto ray_row = [&](int row) {
+    return __ldg(P.rays + static_cast<size_t>(row) * P.n_pad + r);
+  };
 #pragma unroll
   for (int d = 0; d < 3; ++d) {
-    org[d] = __ldg(P.rays + (kRowOrg + d) * P.n_pad + r);
-    inv[d] = __ldg(P.rays + (kRowInv + d) * P.n_pad + r);
-    shear[d] = __ldg(P.rays + (kRowShear + d) * P.n_pad + r);
-    const int kd = static_cast<int>(__ldg(P.rays + (kRowK + d) * P.n_pad + r));
-    const bool neg = signbit(__ldg(P.rays + (kRowDir + d) * P.n_pad + r));
+    org[d] = ray_row(kRowOrg + d);
+    inv[d] = ray_row(kRowInv + d);
+    shear[d] = ray_row(kRowShear + d);
+    const int kd = static_cast<int>(ray_row(kRowK + d));
+    const bool neg = signbit(ray_row(kRowDir + d));
     code |= (static_cast<unsigned>(kd) << (2 * d)) | (static_cast<unsigned>(neg) << (6 + d));
   }
-  const float extent = __ldg(P.rays + kRowExt * P.n_pad + r);
+  const float extent = ray_row(kRowExt);
 
   RayStack<kLocalStack> stack;
   // slot sp - 1 whenever sp > 0, kept in a register: after a push it is

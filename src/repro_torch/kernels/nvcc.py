@@ -9,6 +9,9 @@ The build happens at the first launch, never at import, into
 source rebuilds.  Rounding rules: ``-fmad=false`` and no
 ``--use_fast_math`` (see ``csrc/datapath.cuh``).
 
+A build that runs ``nvcc`` counts as one compile event for
+``repro_torch.obs.CompileTracker``.
+
 Each kernel wrapper calls :func:`count_launch` right where it launches
 its kernel, and nowhere else; :func:`launch_counts` and
 :func:`reset_launches` let a caller show that a path went through the
@@ -27,6 +30,8 @@ from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
+
+from ..obs.compile import record_compile
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -122,6 +127,7 @@ def build() -> Path:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{proc.stdout}\n{proc.stderr}")
         os.replace(staged, out)
+    record_compile()
     return out
 
 

@@ -537,3 +537,136 @@ def test_traverse_kernel_every_variant_in_any_order(cuda, tag, stack):
             overflowed |= bool(want.stack_overflow.any())
     assert overflowed == (stack == 2)
     assert nvcc.launch_counts()["traverse"] == before + len(cases) * len(batches)
+
+
+# ---------------------------------------------------------------------------
+# operands past 2^31 elements: the kernels' row offsets are 64-bit
+# ---------------------------------------------------------------------------
+
+#: a few rays or jobs, tiled across a launch whose operand rows start past
+#: 2^31 elements: row 15 of a (16, n_pad) ray operand above 2^31 / 15
+#: columns, row 11 of an OpQuadbox box operand above 2^31 / 11, row 2 of an
+#: OpTriangle operand above 2^31 / 3
+TILE = 128
+HUGE_RAYS = 150_000_000
+HUGE_BOX_JOBS = 196_000_000
+HUGE_TRI_JOBS = 720_000_000
+
+
+def _tiled(base: torch.Tensor, n: int) -> torch.Tensor:
+    """(rows, TILE) -> (rows, n): column j holds column j % TILE."""
+    out = torch.empty((base.shape[0], n), dtype=base.dtype, device=base.device)
+    out.view(base.shape[0], n // TILE, TILE).copy_(base[:, None, :])
+    return out
+
+
+def _tiled_rows(base: torch.Tensor, n: int) -> torch.Tensor:
+    """(TILE, ...) -> (n, ...): row i holds row i % TILE."""
+    return base.repeat((n // TILE,) + (1,) * (base.ndim - 1))
+
+
+def _columns_off(got: torch.Tensor, want: torch.Tensor) -> int:
+    """How many of ``got``'s columns (its last axis, n = reps * TILE) differ
+    in their bits from the tile ``want`` (the same rows, TILE columns)."""
+    if got.dtype == torch.float32:
+        got, want = got.view(torch.int32), want.view(torch.int32)
+    rows = got.shape[0] if got.ndim == 2 else 1
+    g = got.reshape(rows, -1, TILE)
+    return int((g != want.reshape(rows, 1, TILE)).any(0).sum())
+
+
+def _free_bytes() -> int:
+    torch.cuda.empty_cache()
+    return torch.cuda.mem_get_info()[0]
+
+
+def _huge_trace_columns_off(cuda) -> int:
+    rng = np.random.default_rng(31)
+    tris = rng.normal(size=(40, 3, 3)).astype(np.float32)
+    sc = Scene.from_triangles(tris, device=cuda)
+    base = _rays(rng, TILE)
+    rays = type(base)(*(_tiled_rows(x, HUGE_RAYS) for x in base))
+    before = nvcc.launch_counts().get("traverse", 0)
+    got = traverse_packed(pack_bvh(sc.bvh), rays, sc.depth)
+    assert nvcc.launch_counts()["traverse"] == before + 1
+    del rays
+    want = trace_wavefront(sc.bvh, base, sc.depth)
+    assert bool(want.hit.any()) and not bool(want.hit.all())
+    return sum(_columns_off(getattr(got, f), getattr(want, f))
+               for f in want._fields if f != "rounds")
+
+
+def test_traverse_kernel_past_2_31_operand_elements(cuda):
+    """1.5e8 copies of 128 rays (a 9.6 GB ray operand) through a 40-triangle
+    tree in one launch: every column bit-equal to ``trace_wavefront`` of its
+    ray."""
+    if _free_bytes() < 30 * 2**30:
+        pytest.skip("needs 30 GiB of free device memory")
+    assert _huge_trace_columns_off(cuda) == 0
+
+
+def _huge_neighbor_columns_off(cuda) -> int:
+    pts, cloud = _cloud(cuda, n=2000)
+    base = point_queries(pts[:TILE] + 0.01, 0.3, device=cuda)
+    queries = type(base)(*(_tiled_rows(x, HUGE_RAYS) for x in base))
+    got = neighbor_packed(pack_point_bvh(cloud.bvh), queries, cloud.depth, 4,
+                          mode="within")
+    del queries
+    want = neighbor_wavefront(cloud.bvh, point_sq_norms(cloud.points), base,
+                              cloud.depth, 4, "within")
+    assert bool((want.count > 0).all())
+    cols = lambda x: x.T if x.ndim == 2 else x  # noqa: E731  (rows, queries)
+    return sum(_columns_off(cols(getattr(got, f)), cols(getattr(want, f)))
+               for f in want._fields if f != "rounds")
+
+
+def test_neighbor_kernel_past_2_31_operand_elements(cuda):
+    """1.5e8 copies of 128 radius queries in one launch: every field of
+    every query bit-equal to ``neighbor_wavefront``."""
+    if _free_bytes() < 40 * 2**30:
+        pytest.skip("needs 40 GiB of free device memory")
+    assert _huge_neighbor_columns_off(cuda) == 0
+
+
+def _huge_raybox_columns_off(cuda) -> int:
+    rng = np.random.default_rng(32)
+    ray = _rays(rng, TILE)
+    lo = rng.uniform(-3, 2, (12, TILE)).astype(np.float32)
+    hi = (lo + rng.uniform(0, 3, (12, TILE))).astype(np.float32)
+    base = (ray.origin.T.contiguous(), ray.inv.T.contiguous(),
+            torch.signbit(ray.direction).float().T.contiguous(),
+            torch.as_tensor(lo, device=cuda), torch.as_tensor(hi, device=cuda))
+    want = raybox_plain(*base)
+    assert bool(want[2].any())
+    got = raybox(*(_tiled(x, HUGE_BOX_JOBS) for x in base))
+    return sum(_columns_off(g, w) for g, w in zip(got, want))
+
+
+def test_raybox_kernel_past_2_31_operand_elements(cuda):
+    """OpQuadbox on 1.96e8 jobs (35 GB of operands and outputs), one launch:
+    every column bit-equal to the plain version's on its job."""
+    if _free_bytes() < 40 * 2**30:
+        pytest.skip("needs 40 GiB of free device memory")
+    assert _huge_raybox_columns_off(cuda) == 0
+
+
+def _huge_raytri_columns_off(cuda) -> int:
+    rng = np.random.default_rng(33)
+    ray = _rays(rng, TILE)
+    verts = [torch.as_tensor(rng.normal(size=(3, TILE)).astype(np.float32), device=cuda)
+             for _ in range(3)]
+    k = torch.stack([ray.kx, ray.ky, ray.kz]).contiguous()
+    base = (ray.origin.T.contiguous(), ray.shear.T.contiguous(), k, *verts)
+    want = raytri_plain(*base)
+    assert bool(want[2].any())
+    got = raytri(*(_tiled(x, HUGE_TRI_JOBS) for x in base))
+    return sum(_columns_off(g[None], w[None]) for g, w in zip(got, want))
+
+
+def test_raytri_kernel_past_2_31_operand_elements(cuda):
+    """OpTriangle on 7.2e8 jobs (61 GB of operands and outputs), one launch:
+    every column bit-equal to the plain version's on its job.  Skips on a
+    card without the room."""
+    if _free_bytes() < 64 * 2**30:
+        pytest.skip("needs 64 GiB of free device memory")
+    assert _huge_raytri_columns_off(cuda) == 0
