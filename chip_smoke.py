@@ -125,6 +125,27 @@ Phases (any failure exits non-zero and prints no result line):
     ``CompileTracker`` reads 0 over each warm open-loop run; the
     telemetry-on run's Chrome trace is written to ``build/`` and its
     event count printed;
+13. the LM serving path: ``init_params`` of Phi-3.5-MoE
+    (``phi3.5-moe-42b-a6.6b``) at its published widths, cut to 8 of its
+    32 layers (42.7 GB of float32 weights), on the card from a seeded
+    generator, then ``Engine(max_len=192).generate`` greedy over 8 prompts
+    of 128 tokens drawn with ``SEED``, 32 new tokens.  Printed: parameters
+    and their GB, peak memory, prefill ms, decode ms a step and tokens/s
+    (medians), a ``torch.profiler`` breakdown of a prefill and a decode
+    step (device busy share, largest kernels), the norm kernel's launches
+    and its time at the router table's shape.  Gates: the norm kernel
+    launched exactly (MoE layers x forward calls) times and nothing else;
+    every layer's router norms within ``1e-5 |c|^2`` of ``norms_plain``;
+    layer 0's cosine router on real activations within ``1e-5`` of the
+    CPU path, its top-2 routing equal but at near-ties, its dispatch table
+    and drops equal on the card and the CPU; decode through the cache
+    against one prefill of the whole sequence (capacity raised so that no
+    token drops) within ``LM_DECODE_TOL`` in float32 and, on rows routed
+    alike, in bf16; ``batch_chunk=4`` over 6 prompts, each chunk bit-equal
+    to its rows alone; two sampled runs of one seed bit-equal and in the
+    vocabulary; the smoke configs of Phi-3.5-MoE and SmolLM-360M in float32
+    with greedy tokens equal to the CPU path's and logits within
+    ``LM_SMOKE_TOL``;
 
 then one JSON ``kernels`` line (launches on each kernel's path, times,
 errors, bounds, library times) and the ``{"ok": true, "device": ...}``
@@ -134,6 +155,8 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -249,6 +272,28 @@ SERVE_CALLS = {"closest": ("trace", (), {}), "shadow": ("trace", ("shadow",), {}
 SERVE_MAX_BATCH_ROWS, SERVE_MAX_WAIT = 4096, 2e-3
 #: open-loop offered rates, as shares of the closed loop's sustained rate
 SERVE_OPEN_SHARES = (0.5, 0.9)
+# phase 13: the LM serving path.  Phi-3.5-MoE at its published widths, cut
+# to 8 of its 32 layers: a layer holds 1,300,316,160 parameters (5.20 GB of
+# float32 master weights), so 8 layers and the embeddings are 42.7 GB of the
+# card's 80 and 32 would be 168 GB
+LM_ARCH, LM_LAYERS = "phi3.5-moe-42b-a6.6b", 8
+LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 8, 128, 32, 192
+LM_CHUNK, LM_CHUNK_ROWS, LM_TEMPERATURE = 4, 6, 0.8
+#: capacity_factor at which no expert can drop a token (capacity >= tokens
+#: needs cf >= E / top_k = 8), for the decode-against-prefill gate
+LM_NODROP_CF = 8.0
+#: decode through the cache against one prefill over the whole sequence,
+#: last step's logits.  float32: the two paths differ in summation order
+#: only (CPU, 4 layers at width 1024: 2.7e-6 at logits of 3.5), so 1e-3
+#: holds with room and bf16 compute (errors of 1e-2 and more) fails it.
+#: bf16: rows whose routing agrees everywhere; 16 bf16 steps at logits in
+#: [2, 4) (the CPU, 4 layers at width 1024: up to 5 steps).  A row where
+#: the two paths route some token to other experts (bf16 near-ties of the
+#: top-2 scores, 4 of 960 routings there) is counted, not compared
+LM_DECODE_TOL = {"float32": 1e-3, "bfloat16": 0.25}
+#: smoke configs run on the card and on the CPU in float32 (TF32 off): the
+#: port's own CPU tests' tolerance against the reference
+LM_SMOKE_ARCHS, LM_SMOKE_TOL = ("phi3.5-moe-42b-a6.6b", "smollm-360m"), 1e-4
 
 
 def fail(msg: str) -> None:
@@ -2164,6 +2209,356 @@ def phase_serving(torch, sift_db, sift_q):
     say(f"phase 12 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the LM serving path, Phi-3.5-MoE at full width
+# ---------------------------------------------------------------------------
+
+
+def lm_generate_timed(torch, cfg, params, prompts):
+    """The engine's loop written out, each step timed on the host clock
+    ending in a synchronize: prefill ms (median of ``TIMED_REPS``), decode
+    ms a step (all ``LM_NEW`` steps) and the greedy tokens."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.parallel import NO_PARALLEL
+    cache = init_cache(cfg, prompts.shape[0], LM_MAX_LEN, device="cuda")
+    pre = []
+    for _ in range(TIMED_REPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, filled = prefill(cfg, NO_PARALLEL, params, {"tokens": prompts}, cache)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    cache = filled
+    steps, out = [], []
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    for _ in range(LM_NEW):
+        out.append(tok)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = decode_step(cfg, NO_PARALLEL, params, cache, tok)
+        tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(pre), steps, torch.cat(out, -1)
+
+
+def lm_profile(torch, cfg, params, prompts, steps: int = 3) -> None:
+    """Where a prefill and a decode step spend the device's time: one
+    prefill and ``steps`` decode steps under ``torch.profiler``, each window
+    ending in a synchronize.  Prints the device-busy share of each window's
+    host time (kernels of one stream do not overlap) and its largest
+    kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.parallel import NO_PARALLEL
+    cache = init_cache(cfg, prompts.shape[0], LM_MAX_LEN, device="cuda")
+    logits, cache = prefill(cfg, NO_PARALLEL, params, {"tokens": prompts}, cache)
+    tok = logits[:, -1].argmax(-1)[:, None].to(torch.int32)
+    logits, warm = decode_step(cfg, NO_PARALLEL, params, cache, tok)
+    torch.cuda.synchronize()
+
+    def run_prefill():
+        prefill(cfg, NO_PARALLEL, params, {"tokens": prompts}, cache)
+
+    def run_decode():
+        c = warm
+        for _ in range(steps):
+            _, c = decode_step(cfg, NO_PARALLEL, params, c, tok)
+
+    for label, fn, calls in (("prefill", run_prefill, 1), ("decode step", run_decode, steps)):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+        # device-side events only: an operator's own entry carries its
+        # kernels' time too
+        rows = sorted(((e.self_device_time_total / 1e3, e.count, e.key)
+                       for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                      reverse=True)
+        busy = sum(r[0] for r in rows)
+        if busy == 0:
+            say(f"phase 13 profile, {label}: the profiler saw no device time (not measured)")
+            continue
+        top = "; ".join(f"{ms / calls:.3f} ms x{n // calls} {name[:70]}"
+                        for ms, n, name in rows[:6])
+        say(f"phase 13 profile, {label}: {host_ms / calls:.3f} ms on the host clock "
+            f"(profiled), device busy {busy / calls:.3f} ms ({busy / host_ms:.1%}; "
+            f"idle {1 - busy / host_ms:.1%}); per call: {top}")
+
+
+def lm_decode_vs_prefill(torch, cfg, params, prompts):
+    """Greedy decode of ``LM_NEW`` tokens through the cache, then one
+    prefill over prompt + fed tokens.  Returns each row's max |logit
+    difference| at the last step, the largest |logit|, and which rows the
+    two paths routed differently anywhere (every layer's top-k expert set
+    at every position, read through a spy on ``router_topk``)."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.parallel import NO_PARALLEL
+    b, p = prompts.shape
+    calls = []
+    router_topk = moe_mod.router_topk
+
+    def spy(m, scores):
+        out = router_topk(m, scores)
+        calls.append(out[1].sort(-1).values)
+        return out
+
+    moe_mod.router_topk = spy
+    try:
+        logits, cache = prefill(cfg, NO_PARALLEL, params, {"tokens": prompts},
+                                init_cache(cfg, b, LM_MAX_LEN, device="cuda"))
+        fed = []
+        for _ in range(LM_NEW):
+            fed.append(logits[:, -1].argmax(-1)[:, None].to(torch.int32))
+            logits, cache = decode_step(cfg, NO_PARALLEL, params, cache, fed[-1])
+        n_moe = len(calls) // (1 + LM_NEW)
+        seq = torch.cat([prompts] + fed, dim=1)
+        full, _ = prefill(cfg, NO_PARALLEL, params, {"tokens": seq},
+                          init_cache(cfg, b, LM_MAX_LEN, device="cuda"))
+    finally:
+        moe_mod.router_topk = router_topk
+    k = cfg.moe.top_k
+    flipped = torch.zeros(b, dtype=torch.bool, device="cuda")
+    for layer in range(n_moe):
+        stepped = torch.cat([calls[layer].reshape(b, p, k)]
+                            + [calls[(1 + i) * n_moe + layer].reshape(b, 1, k)
+                               for i in range(LM_NEW)], dim=1)
+        whole = calls[(1 + LM_NEW) * n_moe + layer].reshape(b, p + LM_NEW, k)
+        flipped |= (stepped != whole).any(-1).any(-1)
+    err = (logits.float() - full.float()).abs().amax((1, 2))
+    return err, float(full.float().abs().max()), flipped
+
+
+def lm_teacher_forced(torch, cfg, params, prompts, tokens):
+    """Logits of the prefill and of every decode step fed ``tokens``."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.parallel import NO_PARALLEL
+    logits, cache = prefill(cfg, NO_PARALLEL, params, {"tokens": prompts},
+                            init_cache(cfg, prompts.shape[0], LM_MAX_LEN,
+                                       device=prompts.device))
+    out = [logits.float().cpu()]
+    for i in range(tokens.shape[1]):
+        logits, cache = decode_step(cfg, NO_PARALLEL, params, cache, tokens[:, i:i + 1])
+        out.append(logits.float().cpu())
+    return torch.cat(out, dim=1)
+
+
+def phase_lm(torch, card: str) -> list:
+    """Phase 13: ``init_params`` -> ``Engine.generate`` for Phi-3.5-MoE at
+    full width (8 of 32 layers) on the card, the norm kernel on every MoE
+    layer's router table, and the smoke configs against the CPU path."""
+    import gc
+    from repro_torch.configs import get_config, get_smoke
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.distance import norms_cuda, norms_plain
+    from repro_torch.models import count_params, init_params
+    from repro_torch.models.attention import gqa_apply
+    from repro_torch.models.layers import exact_products, norm_apply
+    from repro_torch.models.model import _embed_inputs
+    from repro_torch.models.moe import _capacity, moe_dispatch, router_scores, router_topk
+    from repro_torch.parallel import NO_PARALLEL
+    from repro_torch.serving import Engine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_LAYERS)
+    n_moe = sum(spec.moe for spec in cfg.layer_specs())
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    if n_params != count_params(cfg):
+        fail(f"phase 13: {n_params} parameters, count_params says {count_params(cfg)}")
+    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)), dtype=torch.int32, device="cuda")
+    eng = Engine(cfg, params, max_len=LM_MAX_LEN)
+    eng.generate(prompts[:1, :8], 1)  # warm-up: cuBLAS handles, the allocator
+
+    # ---- (a) the main path, its launches counted --------------------------
+    nvcc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = eng.generate(prompts, LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = nvcc.launch_counts()
+    want = n_moe * (1 + LM_NEW)
+    if launches != {"norm": want}:
+        fail(f"phase 13: Engine.generate launched {launches}; the norm kernel "
+             f"should run {want} times ({n_moe} MoE layers x {1 + LM_NEW} forwards) "
+             "and nothing else")
+    if greedy.shape != (LM_BATCH, LM_NEW) or greedy.dtype != torch.int32 or not bool(
+            ((greedy >= 0) & (greedy < cfg.vocab_size)).all()):
+        fail(f"phase 13: greedy tokens {tuple(greedy.shape)} {greedy.dtype} out of range")
+    prefill_ms, steps, timed = lm_generate_timed(torch, cfg, params, prompts)
+    if not torch.equal(timed, greedy):
+        fail("phase 13: the timed loop's greedy tokens differ from Engine.generate's")
+    step_ms = statistics.median(steps)
+    peak = torch.cuda.max_memory_allocated()
+    lm_profile(torch, cfg, params, prompts)
+    say(f"phase 13 {cfg.name} at full width, {LM_LAYERS} of 32 layers: "
+        f"{n_params:,} parameters ({n_params * 4 / 1e9:.2f} GB f32), init "
+        f"{init_s:.2f} s; {held / 1e9:.2f} GB held before the phase")
+    say(f"phase 13 Engine.generate batch {LM_BATCH} x prompt {LM_PROMPT} + "
+        f"{LM_NEW} new: {gen_s:.3f} s; prefill {prefill_ms:.3f} ms (median of "
+        f"{TIMED_REPS}), decode {step_ms:.3f} ms a step (median of {LM_NEW}; min "
+        f"{min(steps):.3f}, max {max(steps):.3f}), {LM_BATCH / step_ms * 1e3:.1f} "
+        f"tokens/s; peak memory {peak / 1e9:.2f} GB; norm kernel launches "
+        f"{launches['norm']} ({n_moe} MoE layers x {1 + LM_NEW} forwards); {card}")
+
+    # ---- (b) gates --------------------------------------------------------
+    norm_err = norm_rel = 0.0
+    for layer in params["layers"]:
+        w = layer["ffn"]["router"].detach()
+        got, ref = norms_cuda(w), norms_plain(w)
+        norm_err = max(norm_err, score_error(got, ref, ref))
+        norm_rel = max(norm_rel, scaled_error(got, ref, ref))
+    with torch.no_grad(), exact_products():
+        h, _, pos = _embed_inputs(cfg, NO_PARALLEL, params, {"tokens": prompts})
+        blk = params["layers"][0]
+        y, _ = gqa_apply(cfg, NO_PARALLEL, blk["mixer"],
+                         norm_apply(cfg, blk["norm1"], h), pos)
+        x2 = norm_apply(cfg, blk["norm2"], h + y).reshape(-1, cfg.d_model)
+        router_w = blk["ffn"]["router"].detach()
+        cos_m = dataclasses.replace(cfg.moe, router_metric="cosine")
+        cos = router_scores(cos_m, x2, router_w)
+        cos_err = float((cos.cpu() - router_scores(cos_m, x2.cpu(), router_w.cpu())).abs().max())
+        scores = router_scores(cfg.moe, x2, router_w)
+        w_g, idx_g, _ = router_topk(cfg.moe, scores)
+        s_c = router_scores(cfg.moe, x2.cpu(), router_w.cpu())
+        w_c, idx_c, _ = router_topk(cfg.moe, s_c)
+    if cos_err > SCORE_RTOL:
+        fail(f"phase 13: cosine router scores differ from the CPU path by {cos_err:.3g}")
+    # routing on the card against the CPU path: equal, but where the CPU's
+    # k-th and (k+1)-th scores are within the scores' tolerance
+    n_tok, k = x2.shape[0], cfg.moe.top_k
+    top = s_c.topk(k + 1, dim=-1).values
+    qc = x2.cpu().float().norm(dim=1) * router_w.cpu().norm(dim=1).max()
+    close_rows = (top[:, k - 1] - top[:, k]) <= 2 * SCORE_RTOL * qc
+    differ = (idx_g.cpu() != idx_c).any(1)
+    if bool((differ & ~close_rows).any()):
+        fail(f"phase 13: routing differs from the CPU path on "
+             f"{int((differ & ~close_rows).sum())} tokens with clear margins")
+    cap = _capacity(cfg.moe, n_tok)
+    table, gather_w, src = moe_dispatch(n_tok, w_g, idx_g, cfg.moe.num_experts, 0, cap)
+    c_table, c_gather_w, c_src = moe_dispatch(n_tok, w_g.cpu(), idx_g.cpu(),
+                                              cfg.moe.num_experts, 0, cap)
+    if not (torch.equal(table.cpu(), c_table) and torch.equal(src.cpu(), c_src)
+            and torch.equal(gather_w.cpu(), c_gather_w)):
+        fail("phase 13: moe_dispatch's table or drops differ on the card and the CPU")
+    drops = int((c_src == cfg.moe.num_experts * cap).sum())
+    say(f"phase 13 gates: router norms of all {n_moe} layers within "
+        f"{norm_rel:.3g} |c|^2 of norms_plain (gate {SCORE_RTOL:g}); layer 0's "
+        f"cosine router on {n_tok} real activations within {cos_err:.3g} of the CPU "
+        f"path (gate {SCORE_RTOL:g}); top-{k} routing equal on "
+        f"{n_tok - int(differ.sum())} of {n_tok} tokens ({int(close_rows.sum())} "
+        f"within the scores' tolerance of a tie); dispatch (capacity {cap}) equal "
+        f"on the card and the CPU, {drops} of {n_tok * k} choices dropped")
+    del x2, h, y, scores, cos
+
+    # decode through the cache against one prefill of the whole sequence
+    for dtype in ("float32", "bfloat16"):
+        nodrop = dataclasses.replace(
+            cfg, compute_dtype=dtype,
+            moe=dataclasses.replace(cfg.moe, capacity_factor=LM_NODROP_CF))
+        err, scale, flipped = lm_decode_vs_prefill(torch, nodrop, params, prompts)
+        kept = ~flipped
+        tol = LM_DECODE_TOL[dtype]
+        worst = float(err[kept].max()) if bool(kept.any()) else float("nan")
+        say(f"phase 13 decode vs one prefill of {LM_PROMPT + LM_NEW} tokens "
+            f"({dtype}, capacity_factor {LM_NODROP_CF:g}: no drops): last-step "
+            f"logits max |err| per row {[round(float(e), 6) for e in err]} at "
+            f"|logits| up to {scale:.3f}; {int(flipped.sum())} of {LM_BATCH} rows "
+            f"routed differently somewhere (not compared); worst compared row "
+            f"{worst:.6g} (gate {tol:g})")
+        if dtype == "float32" and int(kept.sum()) < LM_BATCH // 2:
+            fail(f"phase 13: float32 decode and prefill routed {int(flipped.sum())} "
+                 f"of {LM_BATCH} rows differently")
+        if bool(kept.any()) and worst > tol:
+            fail(f"phase 13: {dtype} decode logits {worst:.6g} from the full "
+                 f"prefill's (gate {tol:g})")
+
+    # batch_chunk: each chunk equals its rows generated alone
+    chunked = Engine(cfg, params, max_len=LM_MAX_LEN, batch_chunk=LM_CHUNK).generate(
+        prompts[:LM_CHUNK_ROWS], LM_NEW)
+    tail = list(range(LM_CHUNK, LM_CHUNK_ROWS))
+    for lo, rows in ((0, list(range(LM_CHUNK))),
+                     (LM_CHUNK, tail + [tail[0]] * (LM_CHUNK - len(tail)))):
+        n = min(LM_CHUNK, LM_CHUNK_ROWS - lo)
+        if not torch.equal(chunked[lo:lo + n], eng.generate(prompts[rows], LM_NEW)[:n]):
+            fail(f"phase 13: batch_chunk's chunk at row {lo} differs from its rows "
+                 "generated alone")
+    sampled = [eng.generate(prompts, LM_NEW, temperature=LM_TEMPERATURE, rng=SEED)
+               for _ in range(2)]
+    if not torch.equal(sampled[0], sampled[1]):
+        fail("phase 13: two sampled runs from one seed differ")
+    if not bool(((sampled[0] >= 0) & (sampled[0] < cfg.vocab_size)).all()):
+        fail("phase 13: a sampled token outside the vocabulary")
+    say(f"phase 13 batch_chunk {LM_CHUNK} over {LM_CHUNK_ROWS} prompts: each chunk "
+        f"bit-equal to its rows alone; sampled (temperature {LM_TEMPERATURE:g}, "
+        f"seed {SEED}) twice: bit-equal, {int((sampled[0] != greedy).sum())} of "
+        f"{greedy.numel()} tokens unlike the greedy run's")
+
+    # the norm kernel at the router's shape, for the kernels line
+    w = params["layers"][0]["ffn"]["router"].detach()
+    e, d = w.shape
+    wrap_ms, n_k = event_ms(lambda: norms_cuda(w))
+    plain_ms, _ = event_ms(lambda: norms_plain(w))
+    sets = []
+    for i in range(l2_copies(w.numel() * 4 + e * 4)):
+        wi = w if i == 0 else w.clone()
+        out = torch.empty((1, e), dtype=torch.float32, device="cuda")
+        sets.append((wi, out))
+    alone_ms = device_ms("rayflex_norm", [(a.data_ptr(), o.data_ptr(), e, d)
+                                          for a, o in sets])
+    if not torch.equal(bits(sets[0][1]), bits(n_k)):
+        fail("phase 13: the norm kernel, timed alone, differs from its wrapper")
+    lib_ms, _ = event_ms(lambda: torch.linalg.vector_norm(w, dim=1))
+    bound = bound_ms(4.0 * (e * d + e), 2.0 * e * d)
+    say(f"phase 13 norm kernel {e} x {d} (the router table): {alone_ms:.4f} ms alone "
+        f"({DEVICE_REPS} launches over {len(sets)} copies), window {wrap_ms:.4f}, "
+        f"plain {plain_ms:.4f}, torch.linalg.vector_norm {lib_ms:.4f}, bound "
+        f"{bound[0]:.6f} {bound[1]}; max |err| {norm_err:.3g}")
+    del sets, eng, params, w
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- (c) smoke configs in float32: the card against the CPU path -----
+    for arch in LM_SMOKE_ARCHS:
+        scfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+        cpu_params = init_params(SEED, scfg, device="cpu")
+        gpu_params = copy.deepcopy(cpu_params).to("cuda")
+        toks = np.random.default_rng(SEED).integers(0, scfg.vocab_size, (4, 16))
+        t_cpu = torch.as_tensor(toks, dtype=torch.int32)
+        want = Engine(scfg, cpu_params, max_len=LM_MAX_LEN).generate(t_cpu, 16)
+        got = Engine(scfg, gpu_params, max_len=LM_MAX_LEN).generate(t_cpu.cuda(), 16)
+        if not torch.equal(got.cpu(), want):
+            fail(f"phase 13 {arch} smoke: greedy tokens on the card differ from the CPU's")
+        l_cpu = lm_teacher_forced(torch, scfg, cpu_params, t_cpu, want)
+        l_gpu = lm_teacher_forced(torch, scfg, gpu_params, t_cpu.cuda(), want.cuda())
+        s_err = float((l_gpu - l_cpu).abs().max())
+        if s_err > LM_SMOKE_TOL:
+            fail(f"phase 13 {arch} smoke: logits on the card {s_err:.3g} from the "
+                 f"CPU's (gate {LM_SMOKE_TOL:g})")
+        say(f"phase 13 {arch} smoke (float32): 4 x 16 + 16 greedy tokens equal on the "
+            f"card and the CPU, logits of all 17 steps within {s_err:.3g} (gate "
+            f"{LM_SMOKE_TOL:g})")
+    say(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}")
+    return [kernel_row("norm (router)", "distance.cu", "src/repro/kernels/distance.py:65",
+                       {"norm (router)": launches["norm"]}, alone_ms, plain_ms, norm_err,
+                       bound, lib_ms, wrapper_ms=wrap_ms)]
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_dir():
         fail(f"{SRC / 'repro_torch'} or {GOLDEN} missing: run from a "
@@ -2173,6 +2568,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a GPU")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.kernels import nvcc
@@ -2227,6 +2623,8 @@ def main() -> None:
     phase_dynamic(torch)
     kernels += phase_twins(torch)
     phase_serving(torch, vectors[0], vectors[1])
+    del stage_jobs, vectors
+    kernels += phase_lm(torch, card)
 
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -19,6 +19,10 @@
     counts = engine.count_within(queries, radius=0.1)
     cloud.refit(moved_points)                        # animate the cloud
 
+    cfg = get_config("phi3.5-moe-42b-a6.6b")         # or get_smoke(...)
+    params = init_params(0, cfg)                     # seeded, on the card
+    tokens = Engine(cfg, params, max_len=192).generate(prompts, 32)
+
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 from .core.build import (  # noqa: F401
@@ -51,15 +55,30 @@ from .core.session import (  # noqa: F401
 )
 from .core.types import Box, Ray, Triangle, make_ray  # noqa: F401
 from .core.wavefront import RAY_TYPES, SHADOW_T_MIN  # noqa: F401
+from .configs import ARCH_IDS, get_config, get_smoke  # noqa: F401
+from .models import (  # noqa: F401
+    ModelConfig,
+    cache_shapes,
+    count_active_params,
+    count_params,
+    decode_step,
+    init_cache,
+    init_params,
+    prefill,
+)
+from .serving.engine import Engine  # noqa: F401
 
 __all__ = [
+    "ARCH_IDS",
     "BVH4",
     "Box",
     "BuildResult",
     "CacheInfo",
     "DEFAULT_CONFIG",
     "DatapathConfig",
+    "Engine",
     "METRICS",
+    "ModelConfig",
     "NEIGHBOR_MODES",
     "NearestResult",
     "NeighborRecord",
@@ -76,9 +95,18 @@ __all__ = [
     "VectorIndex",
     "WithinResult",
     "builders",
+    "cache_shapes",
+    "count_active_params",
+    "count_params",
+    "decode_step",
     "distance_backends",
+    "get_config",
+    "get_smoke",
+    "init_cache",
+    "init_params",
     "make_ray",
     "neighbor_backends",
+    "prefill",
     "refit",
     "refit_points",
     "register_builder",

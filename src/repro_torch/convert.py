@@ -1,16 +1,19 @@
 """Carry state across from the reference package, through numpy.
 
 The port imports nothing of ``repro``; a caller who holds a ``repro``
-BVH, ray batch, vector index, point cloud or datapath job stream passes
-its arrays as numpy and gets the port's objects back.  With these,
-traversal parity can be tested apart from builder parity: both packages
-traverse the very same tree, under any datapath config (a config crosses
-as its ``tag``, e.g. ``"bvh8_s64_bf16_compressed"``).
+BVH, ray batch, vector index, point cloud, datapath job stream, model
+parameters or decode cache passes its arrays as numpy and gets the port's
+objects back.  With these, traversal parity can be tested apart from
+builder parity: both packages traverse the very same tree, under any
+datapath config (a config crosses as its ``tag``, e.g.
+``"bvh8_s64_bf16_compressed"``); and both compute a model with the same
+weights.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+from torch import nn
 
 import re
 
@@ -19,6 +22,7 @@ from .core.device import resolve_device
 from .core.session import PointCloudScene, Scene, VectorIndex
 from .core.stream import DatapathJob
 from .core.types import Box, DatapathState, Ray, Triangle
+from .models.config import ModelConfig, derive_segments
 
 
 def _f32(x, device) -> torch.Tensor:
@@ -130,3 +134,56 @@ def datapath_state_from_numpy(state, *, device=None) -> DatapathState:
     """A ``repro`` ``DatapathState`` with numpy leaves -> the port's."""
     device = resolve_device(device)
     return DatapathState(*(_f32(x, device) for x in state))
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A numpy array (bf16 from ``ml_dtypes`` too) as a tensor of its dtype."""
+    x = np.asarray(x)
+    if x.dtype.name == "bfloat16":
+        return torch.from_numpy(x.view(np.int16).copy()).view(torch.bfloat16).to(device)
+    return torch.as_tensor(x.copy(), device=device)
+
+
+def _modules(tree, device):
+    """A dict of dicts of arrays -> ``nn.ModuleDict`` / ``nn.ParameterDict``."""
+    if all(isinstance(v, dict) for v in tree.values()):
+        return nn.ModuleDict({k: _modules(v, device) for k, v in tree.items()})
+    return nn.ParameterDict({k: nn.Parameter(_tensor(v, device))
+                             for k, v in tree.items()})
+
+
+def model_params_from_numpy(cfg: ModelConfig, params, *, device=None) -> nn.ModuleDict:
+    """A ``repro`` parameter tree with numpy leaves (for example
+    ``jax.tree.map(np.asarray, params)``) -> the port's modules: the
+    reference's stacked segment arrays split into one block per layer, in
+    layer order."""
+    device = resolve_device(device)
+    layers = []
+    for (pattern, repeats), seg in zip(derive_segments(cfg), params["segments"],
+                                       strict=True):
+        if len(seg) != len(pattern):
+            raise ValueError(f"a segment of {len(seg)} blocks for a pattern of "
+                             f"{len(pattern)}")
+        for r in range(repeats):
+            for blk in seg:
+                layers.append(_modules(_slice(blk, r), device))
+    return nn.ModuleDict({"embed": _modules(params["embed"], device),
+                          "layers": nn.ModuleList(layers),
+                          "final_norm": _modules(params["final_norm"], device)})
+
+
+def _slice(tree, r):
+    return {k: _slice(v, r) if isinstance(v, dict) else np.asarray(v)[r]
+            for k, v in tree.items()}
+
+
+def cache_from_numpy(cfg: ModelConfig, cache, *, device=None) -> dict:
+    """A ``repro`` decode cache with numpy leaves -> the port's: the same
+    per-segment stacked buffers, and ``len`` as a host integer."""
+    device = resolve_device(device)
+    segs = [[{k: _tensor(v, device) for k, v in blk.items()} for blk in seg]
+            for seg in cache["segs"]]
+    if len(segs) != len(derive_segments(cfg)):
+        raise ValueError(f"{len(segs)} cache segments for "
+                         f"{len(derive_segments(cfg))} in {cfg.name}")
+    return {"segs": segs, "len": int(cache["len"])}

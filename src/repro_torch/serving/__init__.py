@@ -1,11 +1,11 @@
-"""Serving layer of the port: the ray-query server.
+"""Serving layer of the port: the LM token engine and the ray-query server.
 
-:class:`QueryServer` (+ :class:`Coalescer`, :class:`AdmissionController`)
-is the async request-level server over ``repro_torch.api.QueryEngine``:
-continuous batching of many small trace / nearest / within /
-count_within / scores requests into whole batches, bit-identical to
-direct engine calls (DESIGN.md §10).  The reference's LM token engine
-(``repro.serving.Engine``) is not ported yet: it waits for the LM stack.
+* :class:`Engine` -- batched prefill + decode for the model stack.
+* :class:`QueryServer` (+ :class:`Coalescer`, :class:`AdmissionController`)
+  -- the async request-level server over ``repro_torch.api.QueryEngine``:
+  continuous batching of many small trace / nearest / within /
+  count_within / scores requests into whole batches, bit-identical to
+  direct engine calls (DESIGN.md §10).
 """
 from .admission import (  # noqa: F401
     AdmissionController,
@@ -22,6 +22,7 @@ from .batching import (  # noqa: F401
     Coalescer,
     Request,
 )
+from .engine import Engine  # noqa: F401
 from .query_server import QueryServer, ServerStats  # noqa: F401
 
 __all__ = [
@@ -29,6 +30,7 @@ __all__ = [
     "AdmissionStats",
     "Batch",
     "Coalescer",
+    "Engine",
     "FLUSH_DEADLINE",
     "FLUSH_DRAIN",
     "FLUSH_FULL",

@@ -540,6 +540,72 @@ def test_traverse_kernel_every_variant_in_any_order(cuda, tag, stack):
 
 
 # ---------------------------------------------------------------------------
+# the MoE router (OpAngular over the expert table) and dispatch on the card
+# ---------------------------------------------------------------------------
+
+
+def _router_inputs(cuda, n, e, d, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=cuda)
+    w = torch.randn((e, d), generator=g, device=cuda) / d ** 0.5
+    return x, w
+
+
+@pytest.mark.parametrize("metric", ["angular", "cosine"])
+def test_router_scores_run_the_norm_kernel(cuda, metric):
+    """Phi-3.5-MoE's router shape, (16, 4096): one norm-kernel launch per
+    call, its norms within 1e-5 |c|^2 of ``norms_plain``, the scores within
+    1e-5 |q||c| (dots) or 1e-5 (cosines) of the CPU path's."""
+    from repro_torch.models import MoEConfig
+    from repro_torch.models.moe import router_scores
+    m = MoEConfig(num_experts=16, top_k=2, d_ff_expert=6400, router_metric=metric)
+    x, w = _router_inputs(cuda, 512, 16, 4096, 11)
+    before = nvcc.launch_counts().get("norm", 0)
+    got = router_scores(m, x, w)
+    assert nvcc.launch_counts()["norm"] == before + 1
+    norms = norms_cuda(w)
+    want_norms = norms_plain(w)
+    assert bool(((norms - want_norms).abs() <= 1e-5 * want_norms).all())
+    want = router_scores(m, x.cpu(), w.cpu())
+    scale = (x.cpu().norm(dim=1)[:, None] * w.cpu().norm(dim=1)[None, :]
+             if metric == "angular" else 1.0)
+    assert bool(((got.cpu() - want).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_local_on_the_card_matches_the_cpu(cuda, dtype):
+    """Capacity dispatch with drops (capacity 64 for 512 tokens x top-2 over
+    16 experts): tables and drops equal on the card and the CPU; the
+    outputs within the compute dtype's rounding (f32: 1e-4 of the largest
+    output, summation order; bf16: 2^-6 of it)."""
+    from repro_torch.models import ModelConfig, MoEConfig
+    from repro_torch.models.layers import exact_products
+    from repro_torch.models.moe import _capacity, moe_dispatch, moe_init, moe_local, router_topk
+    cfg = ModelConfig(name="t", family="moe", num_layers=1, d_model=256, num_heads=2,
+                      num_kv_heads=2, d_ff=64, vocab_size=64, moe_pattern=(True,),
+                      moe=MoEConfig(num_experts=16, top_k=2, d_ff_expert=128,
+                                    capacity_factor=1.0))
+    p = moe_init(torch.Generator().manual_seed(12), cfg)
+    x, _ = _router_inputs(torch.device("cpu"), 512, 16, 256, 12)
+    with torch.no_grad():
+        w, idx, _ = router_topk(cfg.moe, x @ p["router"].T)
+        cap = _capacity(cfg.moe, 512)
+        table, gather_w, src = moe_dispatch(512, w, idx, 16, 0, cap)
+        ctable, cgather_w, csrc = moe_dispatch(512, w.to(cuda), idx.to(cuda), 16, 0, cap)
+        assert int((src == 16 * cap).sum()) > 0
+        assert torch.equal(ctable.cpu(), table) and torch.equal(csrc.cpu(), src)
+        assert torch.equal(cgather_w.cpu(), gather_w)
+        want = moe_local(cfg, x.to(dtype), w, idx, p["wi"], p["wg"], p["wo"], 0, cap)
+        pc = {k: v.to(cuda) for k, v in p.items()}
+        with exact_products():
+            got = moe_local(cfg, x.to(cuda, dtype), w.to(cuda), idx.to(cuda), pc["wi"],
+                            pc["wg"], pc["wo"], 0, cap)
+    tol = (1e-4 if dtype == torch.float32 else 2**-6) * float(want.float().abs().max())
+    assert float((got.cpu().float() - want.float()).abs().max()) <= tol
+    assert bool((got[csrc.reshape(512, 2).eq(16 * cap).all(1)] == 0).all())
+
+
+# ---------------------------------------------------------------------------
 # operands past 2^31 elements: the kernels' row offsets are 64-bit
 # ---------------------------------------------------------------------------
 

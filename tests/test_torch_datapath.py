@@ -315,6 +315,8 @@ def test_importing_the_port_loads_neither_jax_nor_repro():
             "import repro_torch, repro_torch.api, repro_torch.convert\n"
             "import repro_torch.kernels.ops, repro_torch.kernels.traverse\n"
             "import repro_torch.kernels.nvcc, repro_torch.core.build.quality\n"
+            "import repro_torch.models, repro_torch.configs\n"
+            "import repro_torch.serving.engine, repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or"
             " m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)\n")
