@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import contextlib
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -52,18 +53,35 @@ def compute_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.compute_dtype)
 
 
+_exact_lock = threading.Lock()
+_exact_depth = 0
+_exact_saved = None
+
+
 @contextlib.contextmanager
 def exact_products():
     """Matrix products on the card as the reference computes them: float32
     products without TF32 (``Precision.HIGHEST``) and bf16 products
-    reduced in float32, restoring the caller's settings after."""
+    reduced in float32.
+
+    The two settings are process-wide.  The first caller to enter saves
+    them and the last to leave restores them, so threads that serve at
+    once all keep exact products until the last of them is done; code that
+    runs meanwhile outside this context, in any thread, sees them off."""
+    global _exact_depth, _exact_saved
     m = torch.backends.cuda.matmul
-    prev = m.allow_tf32, m.allow_bf16_reduced_precision_reduction
-    m.allow_tf32 = m.allow_bf16_reduced_precision_reduction = False
+    with _exact_lock:
+        if _exact_depth == 0:
+            _exact_saved = m.allow_tf32, m.allow_bf16_reduced_precision_reduction
+            m.allow_tf32 = m.allow_bf16_reduced_precision_reduction = False
+        _exact_depth += 1
     try:
         yield
     finally:
-        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = prev
+        with _exact_lock:
+            _exact_depth -= 1
+            if _exact_depth == 0:
+                m.allow_tf32, m.allow_bf16_reduced_precision_reduction = _exact_saved
 
 
 # ---------------------------------------------------------------------------

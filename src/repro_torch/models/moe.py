@@ -72,9 +72,12 @@ def router_topk(m: MoEConfig, scores: torch.Tensor):
         keys, idx = topk_keys(order_key(probs), m.top_k)
         w = key_value(keys)
         full = probs
-    # Switch-style load-balance loss: E * sum_e f_e * P_e
-    f_e = (torch.bincount(idx.reshape(-1), minlength=e).float()
-           / max(n * m.top_k, 1))
+    # Switch-style load-balance loss: E * sum_e f_e * P_e.  The counts by a
+    # scatter-add, which (unlike bincount) needs no device-to-host sync
+    counts = torch.zeros(e, dtype=torch.float32, device=idx.device).scatter_add_(
+        0, idx.reshape(-1), torch.ones(idx.numel(), dtype=torch.float32,
+                                       device=idx.device))
+    f_e = counts / max(n * m.top_k, 1)
     p_e = full.mean(0)
     aux = e * torch.sum(f_e * p_e)
     return w, idx, aux

@@ -9,16 +9,12 @@ identity.  A context given a mesh raises: sharding over several cards
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Any, Optional
 
 
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     mesh: Optional[Any] = None
-    batch_axes: Tuple[str, ...] = ("data",)
-    model_axis: Optional[str] = "model"
-    seq_axis: Optional[str] = None
-    fsdp_axes: Tuple[str, ...] = ()
 
     def __post_init__(self):
         if self.mesh is not None:

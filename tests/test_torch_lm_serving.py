@@ -25,8 +25,10 @@ import torch
 
 from repro.configs import get_smoke as jget_smoke
 from repro.models import init_cache as jinit_cache
+from repro.models import init_params as jinit_params
 from repro.serving import Engine as JEngine
 from repro_torch.configs import get_smoke
+from repro_torch.convert import cache_from_numpy, model_params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models import decode_step, init_cache, init_params, prefill
 from repro_torch.parallel import NO_PARALLEL as CTX
@@ -125,6 +127,32 @@ def test_prefill_decode_and_generate_match_the_reference(arch, dtype):
           f"{B * NEW} steps")
     if dtype == "float32":
         np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "chatglm3-6b"])
+def test_the_references_weights_and_cache_load_into_the_port(arch):
+    """The reference's own parameters (``repro.models.init_params``) and its
+    cache after a prefill, loaded through ``convert``: one decode step of
+    the port from that cache equals the reference's next step (float32,
+    ``TOL``), logits and cache."""
+    cfg = dataclasses.replace(get_smoke(arch), compute_dtype="float32")
+    jcfg = dataclasses.replace(jget_smoke(arch), compute_dtype="float32")
+    # jitted: the reference's eager init of an MoE smoke config takes seconds
+    jparams = jax.jit(lambda key: jinit_params(key, jcfg))(jax.random.PRNGKey(3))
+    params = model_params_from_numpy(cfg, jax.tree.map(np.asarray, jparams),
+                                     device="cpu")
+    toks = _prompts(cfg, seed=3)
+    jeng = JEngine(jcfg, jparams, max_len=MAX_LEN)
+    _, jc = jeng._prefill(jparams, {"tokens": jnp.asarray(toks)},
+                          jinit_cache(jcfg, B, MAX_LEN))
+    # before the decode step, which donates the reference's cache
+    tc = cache_from_numpy(cfg, jax.tree.map(np.asarray, jc), device="cpu")
+    assert tc["len"] == T
+    tok = toks[:, :1]
+    jl, jc = jeng._decode(jparams, jc, jnp.asarray(tok))
+    tl, tc = decode_step(cfg, CTX, params, tc, torch.as_tensor(tok))
+    _close(tl, jl, TOL["float32"], "decode logits from the reference's cache")
+    _caches_close(tc, jc, TOL["float32"], "decode from the reference's cache")
 
 
 def test_batch_chunk_equals_each_chunk_alone_and_the_reference():

@@ -200,6 +200,40 @@ def test_init_params_raises_without_a_gpu_unless_cpu_requested():
 # ---------------------------------------------------------------------------
 
 
+def test_exact_products_hold_until_the_last_concurrent_caller_leaves():
+    """Two threads inside ``exact_products`` at once: the first to leave
+    does not restore the caller's settings under the other; the last does."""
+    m = torch.backends.cuda.matmul
+    before = m.allow_tf32, m.allow_bf16_reduced_precision_reduction
+    first_in, second_in, first_left = (threading.Event() for _ in range(3))
+    seen = []
+
+    def first():
+        with tlayers.exact_products():
+            first_in.set()
+            second_in.wait()
+        first_left.set()
+
+    def second():
+        first_in.wait()
+        with tlayers.exact_products():
+            second_in.set()
+            first_left.wait()
+            seen.append((m.allow_tf32, m.allow_bf16_reduced_precision_reduction))
+
+    m.allow_tf32 = m.allow_bf16_reduced_precision_reduction = True
+    try:
+        threads = [threading.Thread(target=f) for f in (first, second)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert seen == [(False, False)]
+        assert (m.allow_tf32, m.allow_bf16_reduced_precision_reduction) == (True, True)
+    finally:
+        m.allow_tf32, m.allow_bf16_reduced_precision_reduction = before
+
+
 @pytest.mark.parametrize("norm", ["layernorm", "rmsnorm"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_norm_apply(norm, dtype):
