@@ -527,12 +527,29 @@ int launch_distance(const float* q, const float* c, float* out, int m, int n, in
   return 0;
 }
 
-// ---- the norm kernel -----------------------------------------------------
+// ---- the norm kernel: two variants, the same bits -------------------------
+//
+// |c_n|^2 per row, summed as the reference's _norm_kernel sums it: each
+// 128-feature block's sum (a lane squares 4 consecutive features and adds
+// the products in order, then an xor tree at 16, 8, 4, 2, 1 closes the
+// block) adds into the row's total, block by block.  Bound by bytes: N D 4 B
+// read once.
+//
+// Warp a row (variant 0), for long, narrow tables: a warp walks its row's
+// blocks one after another, 8 rows a 256-thread block.  A row's blocks are
+// dependent round trips to memory, so a table of few rows runs on few warps
+// of few SMs (16 x 4096: 2 blocks, 32 trips in a row).
+//
+// Short-wide (variant 1), for tables of few, wide rows: a block of threads a
+// row, its warps taking the row's blocks in turn (warp w: blocks w, w + W,
+// ...), so the row's loads are in flight together.  Each warp forms its
+// block's sum exactly as variant 0 does and leaves it in shared memory; one
+// warp then adds the sums into the total in block order, the sums handed out
+// by shuffles, so both variants give the same bits for every input.  A lane
+// reads its 4 features as one float4 where every row is 16-byte aligned
+// (d % 4 == 0 and an aligned table), else as 4 scalars, with the same
+// arithmetic.  kernels/distance.py norm_variant picks the variant.
 
-// |c_n|^2 per row: one warp per row, each lane squaring 4 consecutive
-// features of a 128-feature block; the block's sum (a warp reduction) adds
-// into the row's total, block by block, as the reference accumulates.
-// Bound by bytes: N D 4 B read once.
 __global__ void norm_kernel(const float* __restrict__ c, float* __restrict__ out, int n,
                             int d) {
   const int row = blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
@@ -557,6 +574,54 @@ __global__ void norm_kernel(const float* __restrict__ c, float* __restrict__ out
   if (lane == 0) out[row] = total;
 }
 
+// a row's block sums live in the block's shared memory: 48 KB, d up to 1.5M
+constexpr int kWideMaxBlocks = 48 * 1024 / 4;
+
+__global__ void norm_wide_kernel(const float* __restrict__ c, float* __restrict__ out, int d,
+                                 int vec) {
+  extern __shared__ float sums[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const int blocks = (d - 1) / kKBlock + 1;
+  const float* src = c + static_cast<size_t>(blockIdx.x) * d;
+  for (int b = warp; b < blocks; b += warps) {
+    const int col = b * kKBlock + lane * 4;
+    float s = 0.0f;
+    if (vec) {
+      if (col < d) {  // d % 4 == 0: the lane's 4 features are all in the row
+        const float4 x = __ldg(reinterpret_cast<const float4*>(src + col));
+        s = __fadd_rn(s, __fmul_rn(x.x, x.x));
+        s = __fadd_rn(s, __fmul_rn(x.y, x.y));
+        s = __fadd_rn(s, __fmul_rn(x.z, x.z));
+        s = __fadd_rn(s, __fmul_rn(x.w, x.w));
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (col + e < d) {
+          const float x = src[col + e];
+          s = __fadd_rn(s, __fmul_rn(x, x));
+        }
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s = __fadd_rn(s, __shfl_xor_sync(0xffffffffu, s, off));
+    if (lane == 0) sums[b] = s;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+  float total = 0.0f;
+  for (int b0 = 0; b0 < blocks; b0 += 32) {
+    const int here = min(32, blocks - b0);
+    const float mine = lane < here ? sums[b0 + lane] : 0.0f;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      const float s = __shfl_sync(0xffffffffu, mine, j);
+      if (j < here) total = __fadd_rn(total, s);
+    }
+  }
+  if (lane == 0) out[blockIdx.x] = total;
+}
+
 }  // namespace
 
 // q: (m, d) f32, c: (n, d) f32, both row-major; out: (m, n) f32.
@@ -573,13 +638,24 @@ extern "C" int rayflex_distance(const void* q, const void* c, void* out, int m, 
                    : launch_distance<false>(qp, cp, op, m, n, d, s);
 }
 
-// c: (n, d) f32 row-major; out: (n,) f32.
-extern "C" int rayflex_norm(const void* c, void* out, int n, int d, void* stream) {
+// c: (n, d) f32 row-major; out: (n,) f32.  variant 0 = warp a row,
+// 1 = short-wide (a block a row); both give the same bits.
+extern "C" int rayflex_norm(const void* c, void* out, int n, int d, int variant,
+                            void* stream) {
   if (n <= 0) return 0;
-  if (d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 256, rows_per_block = threads / 32;
-  const int blocks = (n + rows_per_block - 1) / rows_per_block;
-  norm_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(c), static_cast<float*>(out), n, d);
+  if (d <= 0 || (variant != 0 && variant != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  auto s = static_cast<cudaStream_t>(stream);
+  auto cp = static_cast<const float*>(c);
+  auto op = static_cast<float*>(out);
+  if (variant == 0) {
+    const int threads = 256, rows_per_block = threads / 32;
+    norm_kernel<<<(n + rows_per_block - 1) / rows_per_block, threads, 0, s>>>(cp, op, n, d);
+  } else {
+    const int blocks = (d - 1) / kKBlock + 1;
+    if (blocks > kWideMaxBlocks) return static_cast<int>(cudaErrorInvalidValue);
+    const int vec = d % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 16 == 0;
+    const int warps = std::min(32, blocks);
+    norm_wide_kernel<<<n, warps * 32, blocks * sizeof(float), s>>>(cp, op, d, vec);
+  }
   RAYFLEX_LAUNCH_RESULT();
 }

@@ -174,14 +174,51 @@ def distance_cuda(q: torch.Tensor, c: torch.Tensor, *,
     return out
 
 
+#: the norm kernel's variants (``csrc/distance.cu`` ``rayflex_norm``)
+NORM_WARP_ROW, NORM_SHORT_WIDE = 0, 1
+#: rows below which a warp a row leaves the card short of bytes in flight
+NORM_WIDE_ROWS = 2048
+#: the short-wide variant keeps a row's block sums in 48 KB of shared memory
+NORM_WIDE_MAX_BLOCKS = 48 * 1024 // 4
+
+
+def norm_variant(n: int, d: int) -> int:
+    """The norm kernel variant for an (n, d) table: short-wide below
+    :data:`NORM_WIDE_ROWS` rows of two or more 128-feature blocks, else a
+    warp a row.
+
+    A warp a row walks its row's blocks one after another, one 512-byte
+    block of each row in flight at a time, so fewer than 2048 rows keep
+    less than 1 MiB in flight: short of what the 132 SMs need to read at
+    the card's rate, its 3.35 TB/s times a round trip (0.31 us: the warp a
+    row takes 9.9 us for 16 x 4096, 32 trips), ~1 MB.  There the
+    short-wide variant puts a row's blocks on the warps of a block of
+    threads, all in flight together.  A row of one block is one trip
+    either way, and the block sums of a row wider than
+    :data:`NORM_WIDE_MAX_BLOCKS` blocks do not fit shared memory.
+    Measured (``chip_smoke.py`` phase 7's sweep, each variant's device
+    time; H100 80GB HBM3, 700 W): short-wide 1.9 / 8.9 us against a warp
+    a row's 9.9 / 11.8 at 16 x 4096 / 1056 x 4096, a warp a row 14.8 /
+    47.1 us against 15.7 / 57.9 at 2112 x 4096 / 8448 x 4096; the two
+    cross between 1056 and 4224 rows at every width from 1024 to 8192
+    (``PERF.md`` §6, the norm kernel's variants)."""
+    if n < 0 or d < 1:
+        raise ValueError(f"expected n >= 0 rows of d >= 1 features, got ({n}, {d})")
+    blocks = -(-d // K_BLOCK)
+    if 2 <= blocks <= NORM_WIDE_MAX_BLOCKS and n < NORM_WIDE_ROWS:
+        return NORM_SHORT_WIDE
+    return NORM_WARP_ROW
+
+
 def norms_cuda(c: torch.Tensor) -> torch.Tensor:
-    """|c_n|^2 for every row: (N, D) f32 -> (1, N) f32."""
+    """|c_n|^2 for every row: (N, D) f32 -> (1, N) f32, through the
+    variant :func:`norm_variant` picks (both give the same bits)."""
     if c.ndim != 2:
         raise ValueError(f"expected c (N, D), got {tuple(c.shape)}")
     if not c.is_cuda:
         return norms_plain(c)
     n, d = c.shape
     ptr_c = nvcc.check_cuda("c", c, torch.float32, (n, d))
-    out = torch.empty((1, n), dtype=torch.float32, device=c.device)
-    nvcc.launch("rayflex_norm", ptr_c, out.data_ptr(), n, d)
+    out = c.new_empty((1, n))
+    nvcc.launch("rayflex_norm", ptr_c, out.data_ptr(), n, d, norm_variant(n, d))
     return out

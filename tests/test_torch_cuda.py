@@ -26,8 +26,10 @@ from repro_torch.api import RAY_TYPES, PointCloudScene, Scene, VectorIndex, make
 from repro_torch.core.neighbor import neighbor_wavefront, point_queries, point_sq_norms
 from repro_torch.core.wavefront import trace_wavefront
 from repro_torch.kernels import nvcc
-from repro_torch.kernels.distance import (MODES, distance_3xtf32, distance_cuda,
-                                          distance_plain, norms_cuda, norms_plain)
+from repro_torch.kernels.distance import (K_BLOCK, MODES, NORM_SHORT_WIDE, NORM_WARP_ROW,
+                                          NORM_WIDE_MAX_BLOCKS, distance_3xtf32,
+                                          distance_cuda, distance_plain, norm_variant,
+                                          norms_cuda, norms_plain)
 from repro_torch.kernels.raybox import raybox, raybox_plain
 from repro_torch.kernels.raytri import raytri, raytri_plain
 from repro_torch.kernels.common import LANES, ROW_K, ROW_MASK, ROW_RESET, ROW_VEC_A
@@ -190,6 +192,89 @@ def test_distance_kernel_matches_3xtf32_model(cuda, m, n, d):
         assert nvcc.launch_counts()["distance"] == before + 1
         model = distance_3xtf32(q, c, mode)
         _assert_scores_close(got, model, _score_scale(q, c, mode), rtol=2e-6)
+
+
+# ---------------------------------------------------------------------------
+# the norm kernel's two variants: warp a row and short-wide
+# ---------------------------------------------------------------------------
+
+NORM_ROWS = (1, 7, 16, 256, 8449)
+NORM_DIMS = (1, 3, 127, 128, 129, 4096, 4097, 7168, 8192)
+
+
+def _norm_table(cuda, n, d, offset=0):
+    """A seeded N(0, 1) (n, d) table with -inf, +inf and NaN where
+    ``_with_non_finite_rows`` puts them in a candidate table, starting
+    ``offset`` floats into its buffer (1: rows not 16-byte aligned)."""
+    g = torch.Generator(device=cuda).manual_seed(10007 * n + d)
+    c = torch.randn(n * d + offset, generator=g, device=cuda)[offset:].view(n, d)
+    c[0, d - 1] = -np.inf
+    c[n // 3, d // 2] = np.inf
+    c[n - 1, 0] = np.nan
+    return c
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("d", NORM_DIMS)
+@pytest.mark.parametrize("n", NORM_ROWS)
+def test_norm_variants_bit_equal_and_match_plain(cuda, n, d, offset):
+    """Both variants through the C entry point: the same bits (every row,
+    the non-finite ones too; float4 and scalar loads in the short-wide
+    one), each within 1e-5 |c|^2 of ``norms_plain``."""
+    c = _norm_table(cuda, n, d, offset)
+    lib = nvcc.library()
+    stream = torch.cuda.current_stream().cuda_stream
+    outs = []
+    for variant in (NORM_WARP_ROW, NORM_SHORT_WIDE):
+        out = torch.empty((1, n), dtype=torch.float32, device=cuda)
+        assert lib.rayflex_norm(c.data_ptr(), out.data_ptr(), n, d, variant, stream) == 0
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert _bits_equal(outs[0], outs[1])
+    want = norms_plain(c)
+    for out in outs:
+        _assert_scores_close(out, want, want.abs().double())
+
+
+@pytest.mark.parametrize("n,d", [(16, 4096), (16, 8192), (256, 7168), (16, 128),
+                                 (2047, 129), (2048, 129), (18_493, 100)])
+def test_norms_cuda_launches_norm_variant(cuda, n, d):
+    """The wrapper launches the kernel of ``norm_variant(n, d)``, as the
+    profiler names it, once and counted, on both sides of the rule's row
+    and width boundaries; its output is bit-equal to the other variant's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    c = _norm_table(cuda, n, d)
+    norms_cuda(c)
+    torch.cuda.synchronize()
+    before = nvcc.launch_counts().get("norm", 0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        got = norms_cuda(c)
+        torch.cuda.synchronize()
+    assert nvcc.launch_counts()["norm"] == before + 1
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    want = {NORM_WARP_ROW: "norm_kernel", NORM_SHORT_WIDE: "norm_wide_kernel"}
+    assert len(names) == 1 and want[norm_variant(n, d)] in names[0], names
+    other = torch.empty_like(got)
+    assert nvcc.library().rayflex_norm(c.data_ptr(), other.data_ptr(), n, d,
+                                       1 - norm_variant(n, d),
+                                       torch.cuda.current_stream().cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert _bits_equal(got, other)
+
+
+def test_norm_entry_point_refuses_what_it_cannot_take(cuda):
+    """An unknown variant, d < 1, and a short-wide row whose block sums
+    would not fit 48 KB of shared memory: cudaErrorInvalidValue (1)."""
+    c = torch.zeros((2, 8), device=cuda)
+    out = torch.empty((1, 2), device=cuda)
+    call = nvcc.library().rayflex_norm
+    stream = torch.cuda.current_stream().cuda_stream
+    assert call(c.data_ptr(), out.data_ptr(), 2, 8, 2, stream) == 1
+    assert call(c.data_ptr(), out.data_ptr(), 2, 0, 0, stream) == 1
+    wide = (NORM_WIDE_MAX_BLOCKS + 1) * K_BLOCK
+    assert call(c.data_ptr(), out.data_ptr(), 2, wide, NORM_SHORT_WIDE, stream) == 1
+    assert call(c.data_ptr(), out.data_ptr(), 0, 8, 1, stream) == 0
 
 
 def _cloud(cuda, n=6000, seed=3):
