@@ -153,9 +153,29 @@ Phases (any failure exits non-zero and prints no result line):
     ``LM_DECODE_TOL`` on every row, in float32 (which must also route
     every row alike by itself) and in bf16; ``batch_chunk=4`` over 6 prompts, each chunk bit-equal
     to its rows alone; two sampled runs of one seed bit-equal and in the
-    vocabulary; the smoke configs of Phi-3.5-MoE and SmolLM-360M in float32
-    with greedy tokens equal to the CPU path's and logits within
-    ``LM_SMOKE_TOL``;
+    vocabulary; the smoke configs of Phi-3.5-MoE, SmolLM-360M and
+    DeepSeek-V3 in float32 with greedy tokens equal to the CPU path's and
+    logits within ``LM_SMOKE_TOL``;
+14. DeepSeek-V3 serving: phase 13's weights released (the memory still
+    allocated printed), then ``init_params`` of ``deepseek-v3-671b`` at its
+    published widths (MLA with q_lora 1536 / kv_lora 512, 128 heads; 256
+    routed experts of width 2048 and one shared, sigmoid top-8 routing
+    scaled by 2.5; vocab 129280), cut to 4 of its 61 layers (3 dense, the
+    first MoE layer) with the MTP head's parameters, 63.19 GB of float32
+    weights, and phase 13's load through ``Engine.generate`` under both MLA
+    decode paths (``absorb`` off and on).  Printed: prefill ms, decode ms a
+    step, tokens/s, peak memory (gate 80 GB), the profiler breakdown of each
+    path.  Gates: the norm kernel launched exactly (1 MoE layer x 33
+    forwards) times a generate and nothing else, short-wide at the model's
+    256 x 7168 router table, within ``1e-5 |c|^2`` of ``norms_plain``; the
+    MoE layer's ``moe_local`` at a prefill's inputs bit-equal across two runs
+    and its combine bit-equal to a per-token loop in (expert, slot) order;
+    the absorbed path against the naive one, teacher-forced with routing
+    forced alike, within ``DS_ABSORB_TOL`` in float32 and bf16; decode
+    against one prefill (no-drop capacity, routing forced to the decode
+    path's, batch ``DS_GATE_BATCH``, peak under 75 GB) within
+    ``DS_DECODE_TOL`` under both paths in float32 and bf16 (float32 must
+    also route every row alike by itself);
 
 then one JSON ``kernels`` line (launches on each kernel's path, times,
 errors, bounds, library times) and the ``{"ok": true, "device": ...}``
@@ -165,6 +185,7 @@ It imports nothing of JAX and nothing of the JAX package ``repro``.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -321,7 +342,33 @@ LM_NODROP_CF = 8.0
 LM_DECODE_TOL = {"float32": 1e-3, "bfloat16": 0.1}
 #: smoke configs run on the card and on the CPU in float32 (TF32 off): the
 #: port's own CPU tests' tolerance against the reference
-LM_SMOKE_ARCHS, LM_SMOKE_TOL = ("phi3.5-moe-42b-a6.6b", "smollm-360m"), 1e-4
+LM_SMOKE_ARCHS, LM_SMOKE_TOL = (("phi3.5-moe-42b-a6.6b", "smollm-360m", "deepseek-v3-671b"),
+                                1e-4)
+# phase 14: DeepSeek-V3 at its published widths, cut to 4 of its 61 layers
+# (the 3 dense ones and the first MoE layer) with the MTP head: 15,797,366,784
+# parameters, 63.19 GB of float32 master weights (count_params; 5 layers
+# would be 109.2 GB).  The largest transient beside them is one expert
+# tensor cast to bf16, 256 x 7168 x 2048 x 2 B = 7.5 GB.  Same load as
+# phase 13, under both MLA decode paths
+DS_ARCH, DS_LAYERS, DS_PARAMS = "deepseek-v3-671b", 4, 15_797_366_784
+#: decode against one prefill at no-drop capacity (cf = E / top_k = 32):
+#: the prefill's expert block is (256, tokens, 7168), 1.17 GB a row of 160
+#: tokens in float32, so 2 rows keep the peak under 75 GB (73.80 measured)
+DS_GATE_BATCH, DS_NODROP_CF = 2, 32.0
+#: as LM_DECODE_TOL, routing forced to the decode path's.  float32: summation
+#: order only (1.3e-5 / 1.4e-5 naive / absorbed at logits up to 3.9, the
+#: card, H100 80GB HBM3); bf16 on the card at full width: 0.045-0.055 on
+#: forced rows, 0.531 on a row routed differently (the control), so 0.1,
+#: 1.8x the worst forced reading and 5x under the control, holds
+DS_DECODE_TOL = {"float32": 1e-3, "bfloat16": 0.1}
+#: the absorbed decode path against the naive one, teacher-forced on the
+#: naive path's greedy tokens at batch 8, routing forced to the naive
+#: path's.  float32: the latent query and output in place of expanded keys
+#: and values, another summation order (9.9e-6 at logits up to 5.0, the
+#: card); bf16 rounds at other places (q_lat, o_lat against k, v): 0.057
+#: on the card with every row routed alike by force, while by itself the
+#: absorbed path routes all 8 rows differently somewhere; 0.1 as above
+DS_ABSORB_TOL = {"float32": 1e-3, "bfloat16": 0.1}
 
 
 def fail(msg: str) -> None:
@@ -2483,7 +2530,7 @@ def lm_generate_timed(torch, cfg, params, prompts):
     return statistics.median(pre), steps, torch.cat(out, -1)
 
 
-def lm_profile(torch, cfg, params, prompts, steps: int = 3) -> None:
+def lm_profile(torch, cfg, params, prompts, steps: int = 3, phase: str = "phase 13") -> None:
     """Where a prefill and a decode step spend the device's time: one
     prefill and ``steps`` decode steps under ``torch.profiler``, each window
     ending in a synchronize.  Prints the device-busy share of each window's
@@ -2522,33 +2569,32 @@ def lm_profile(torch, cfg, params, prompts, steps: int = 3) -> None:
                       reverse=True)
         busy = sum(r[0] for r in rows)
         if busy == 0:
-            say(f"phase 13 profile, {label}: the profiler saw no device time (not measured)")
+            say(f"{phase} profile, {label}: the profiler saw no device time (not measured)")
             continue
         top = "; ".join(f"{ms / calls:.3f} ms x{n // calls} {name[:70]}"
                         for ms, n, name in rows[:6])
-        say(f"phase 13 profile, {label}: {host_ms / calls:.3f} ms on the host clock "
+        say(f"{phase} profile, {label}: {host_ms / calls:.3f} ms on the host clock "
             f"(profiled), device busy {busy / calls:.3f} ms ({busy / host_ms:.1%}; "
             f"idle {1 - busy / host_ms:.1%}); per call: {top}")
 
 
-def lm_decode_vs_prefill(torch, cfg, params, prompts):
-    """Greedy decode of ``LM_NEW`` tokens through the cache, then one
-    prefill over prompt + fed tokens, twice: as it routes itself (the
-    control), and with every MoE layer's top-k experts forced to those the
-    decode path chose for each token (each choice weighted by the whole
-    prefill's own softmax probability of that expert: Phi-3.5-MoE's
-    gating).  Returns each row's max |logit difference| at the last step
-    for the free and the forced prefill, the largest |logit|, and which
-    rows the free prefill routed differently anywhere (every layer's top-k
-    expert set at every position, read through a spy on ``router_topk``)."""
-    from repro_torch.models import decode_step, init_cache, prefill
+def forced_weights(torch, m, scores, idx):
+    """The gate weights of experts ``idx`` (N, k) from router ``scores``,
+    as the config's gating weighs its own top-k: softmax probabilities, or
+    (DeepSeek-V3) sigmoids normalised over the k and scaled."""
+    if m.router == "sigmoid":
+        w = torch.sigmoid(scores).gather(1, idx)
+        return w / torch.clamp_min(w.sum(-1, keepdim=True), 1e-20) * m.route_scale
+    return torch.softmax(scores, dim=-1).gather(1, idx)
+
+
+@contextlib.contextmanager
+def routed(torch, calls: list, forcing: list | None = None):
+    """Every MoE layer's routing through ``router_topk`` while inside:
+    each call's own top-k experts appended to ``calls``; while ``forcing``
+    holds entries, a call takes the next one's experts instead, weighted
+    by :func:`forced_weights`."""
     from repro_torch.models import moe as moe_mod
-    from repro_torch.parallel import NO_PARALLEL
-    if cfg.moe.router != "softmax":
-        fail(f"phase 13: forced routing assumes softmax gating, not {cfg.moe.router}")
-    b, p = prompts.shape
-    k = cfg.moe.top_k
-    calls, forcing = [], []
     router_topk = moe_mod.router_topk
 
     def spy(m, scores):
@@ -2556,21 +2602,53 @@ def lm_decode_vs_prefill(torch, cfg, params, prompts):
         calls.append(idx)
         if forcing:
             idx = forcing.pop(0)
-            w = torch.softmax(scores, dim=-1).gather(1, idx)
+            w = forced_weights(torch, m, scores, idx)
         return w, idx, aux
+
+    moe_mod.router_topk = spy
+    try:
+        yield
+    finally:
+        moe_mod.router_topk = router_topk
+
+
+def routed_apart(torch, a: list, b: list, rows: int):
+    """Which of ``rows`` batch rows two runs' routings (lists of (N, k)
+    expert tensors, token-major) put on another expert set somewhere."""
+    out = torch.zeros(rows, dtype=torch.bool, device="cuda")
+    for x, y in zip(a, b, strict=True):
+        out |= (x.sort(-1).values != y.sort(-1).values).reshape(rows, -1).any(-1)
+    return out
+
+
+def lm_decode_vs_prefill(torch, cfg, params, prompts):
+    """Greedy decode of ``LM_NEW`` tokens through the cache, then one
+    prefill over prompt + fed tokens, twice: as it routes itself (the
+    control), and with every MoE layer's top-k experts forced to those the
+    decode path chose for each token (each choice weighted by the whole
+    prefill's own scores, :func:`forced_weights`).  Returns each row's max
+    |logit difference| at the last step for the free and the forced
+    prefill, the largest |logit|, and which rows the free prefill routed
+    differently anywhere (every layer's top-k expert set at every
+    position)."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.parallel import NO_PARALLEL
+    b, p = prompts.shape
+    k = cfg.moe.top_k
+    calls, forcing = [], []
 
     def whole_prefill():
         return prefill(cfg, NO_PARALLEL, params, {"tokens": seq},
                        init_cache(cfg, b, LM_MAX_LEN, device="cuda"))[0]
 
-    moe_mod.router_topk = spy
-    try:
+    with routed(torch, calls, forcing):
         logits, cache = prefill(cfg, NO_PARALLEL, params, {"tokens": prompts},
                                 init_cache(cfg, b, LM_MAX_LEN, device="cuda"))
         fed = []
         for _ in range(LM_NEW):
             fed.append(logits[:, -1].argmax(-1)[:, None].to(torch.int32))
             logits, cache = decode_step(cfg, NO_PARALLEL, params, cache, fed[-1])
+        del cache
         n_moe = len(calls) // (1 + LM_NEW)
         # each layer's experts of the decode path, token-major as the
         # whole prefill flattens its (batch, position) rows
@@ -2584,12 +2662,8 @@ def lm_decode_vs_prefill(torch, cfg, params, prompts):
         forcing.extend(stepped)
         forced = whole_prefill()
         if forcing:
-            fail(f"phase 13: {len(forcing)} forced routings left unread")
-    finally:
-        moe_mod.router_topk = router_topk
-    flipped = torch.zeros(b, dtype=torch.bool, device="cuda")
-    for st, wh in zip(stepped, whole, strict=True):
-        flipped |= (st.sort(-1).values != wh.sort(-1).values).reshape(b, -1, k).any(-1).any(-1)
+            fail(f"{len(forcing)} forced routings left unread")
+    flipped = routed_apart(torch, stepped, whole, b)
 
     def err(full):
         return (logits.float() - full.float()).abs().amax((1, 2))
@@ -2840,6 +2914,255 @@ def phase_lm(torch, card: str) -> list:
     return [row]
 
 
+# ---------------------------------------------------------------------------
+# phase 14: DeepSeek-V3 serving (MLA, sigmoid top-8 routing) at full width
+# ---------------------------------------------------------------------------
+
+
+def ds_combine_gate(torch, cfg, params, prompts) -> str:
+    """The MoE layer's ``moe_local`` on the card at the inputs a prefill of
+    ``prompts`` gives it (caught by a spy): two runs bit-equal, and its
+    combine (``moe_combine``) bit-equal to a plain loop over each token's
+    gated expert outputs in ascending (expert, slot) order, onto 0.
+    Returns the printed summary."""
+    from repro_torch.models import init_cache, prefill
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.layers import exact_products
+    from repro_torch.parallel import NO_PARALLEL
+    caught = []
+    moe_local = moe_mod.moe_local
+
+    def spy(*args):
+        caught.append(args)
+        return moe_local(*args)
+
+    moe_mod.moe_local = spy
+    try:
+        prefill(cfg, NO_PARALLEL, params, {"tokens": prompts},
+                init_cache(cfg, prompts.shape[0], LM_MAX_LEN, device="cuda"))
+    finally:
+        moe_mod.moe_local = moe_local
+    if len(caught) != 1:
+        fail(f"phase 14: the prefill called moe_local {len(caught)} times, not once")
+    args = caught[0]
+    _, x, weights, experts, wi, wg, wo, offset, cap = args
+    n, d = x.shape
+    k = experts.shape[1]
+    with torch.no_grad(), exact_products():
+        runs = [moe_local(*args) for _ in range(2)]
+        table, gather_w, src = moe_mod.moe_dispatch(n, weights, experts, wi.shape[0],
+                                                    offset, cap)
+        ys = moe_mod._expert_ffn(cfg, wi, wg, wo, torch.cat([x, x.new_zeros((1, d))])[table])
+        flat = torch.cat([ys.reshape(-1, d), ys.new_zeros((1, d))])
+        del ys
+        flat[:-1] *= gather_w.reshape(-1, 1).to(flat.dtype)
+        got = moe_mod.moe_combine(flat, src, n, k)
+        dropped = flat.shape[0] - 1
+        plain = torch.empty_like(got)
+        for t, slots in enumerate(src.view(n, k).tolist()):
+            row = flat.new_zeros(d)
+            for slot in sorted(slots):
+                if slot < dropped:
+                    row = row + flat[slot]
+            plain[t] = row
+    for label, a, b in (("two runs of moe_local", runs[0], runs[1]),
+                        ("moe_combine against moe_local", got, runs[0]),
+                        ("moe_combine against the plain loop", got, plain)):
+        if not torch.equal(a.view(torch.int16), b.view(torch.int16)):
+            fail(f"phase 14 combine: {label} differ in "
+                 f"{int((a.view(torch.int16) != b.view(torch.int16)).any(1).sum())} of {n} rows")
+    n_drop = int((src == dropped).sum())
+    return (f"moe_local on {n} tokens x top-{k} ({x.dtype}, capacity {cap}, {n_drop} "
+            f"choices dropped): two runs bit-equal; its combine bit-equal to a plain "
+            f"per-token loop in (expert, slot) order over the same expert outputs")
+
+
+def ds_absorbed_vs_naive(torch, cfg, params, prompts, tokens):
+    """Teacher-forced logits of the prefill and every decode step fed
+    ``tokens``, on the naive decode path and on the absorbed one twice:
+    routing by itself (the control) and with its routing forced to the
+    naive run's.  Returns the forced and the free run's max |logit
+    difference| from the naive run, the largest |logit| and the rows the
+    absorbed path routed differently by itself."""
+    def run(absorb, calls, forcing=None):
+        acfg = dataclasses.replace(cfg, mla=dataclasses.replace(cfg.mla, absorb=absorb))
+        with routed(torch, calls, forcing):
+            return lm_teacher_forced(torch, acfg, params, prompts, tokens)
+    naive_calls, own = [], []
+    naive = run(False, naive_calls)
+    free = run(True, own)
+    forced = run(True, [], list(naive_calls))
+    flipped = routed_apart(torch, naive_calls, own, prompts.shape[0])
+    return (float((forced - naive).abs().max()), float((free - naive).abs().max()),
+            float(naive.abs().max()), flipped)
+
+
+def phase_deepseek(torch, card: str) -> list:
+    """Phase 14: ``init_params`` -> ``Engine.generate`` for DeepSeek-V3 at
+    full width (4 of 61 layers, the MTP head's parameters) on the card
+    under both MLA decode paths, the norm kernel on the MoE layer's
+    256 x 7168 router table."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.distance import (NORM_SHORT_WIDE, norm_variant, norms_cuda,
+                                              norms_plain)
+    from repro_torch.models import count_params, init_params
+    from repro_torch.serving import Engine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 14: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after phase "
+        "13's weights were released")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(DS_ARCH), num_layers=DS_LAYERS)
+    n_moe = sum(spec.moe for spec in cfg.layer_specs())
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    if not n_params == count_params(cfg) == DS_PARAMS:
+        fail(f"phase 14: {n_params} parameters, count_params says {count_params(cfg)}, "
+             f"the cut's count {DS_PARAMS}")
+    say(f"phase 14 {cfg.name} at full width, {DS_LAYERS} of 61 layers ({n_moe} MoE) with "
+        f"the MTP head: {n_params:,} parameters ({n_params * 4 / 1e9:.2f} GB f32), init "
+        f"{init_s:.2f} s")
+    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)), dtype=torch.int32, device="cuda")
+
+    # ---- (a) the main path under both decode paths, launches counted ------
+    runs = {}
+    for absorb in (False, True):
+        acfg = dataclasses.replace(cfg, mla=dataclasses.replace(cfg.mla, absorb=absorb))
+        eng = Engine(acfg, params, max_len=LM_MAX_LEN)
+        eng.generate(prompts[:1, :8], 1)  # warm-up
+        nvcc.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        greedy = eng.generate(prompts, LM_NEW)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = nvcc.launch_counts()
+        want = n_moe * (1 + LM_NEW)
+        if launches != {"norm": want}:
+            fail(f"phase 14 (absorb={absorb}): Engine.generate launched {launches}; the "
+                 f"norm kernel should run {want} times ({n_moe} MoE layers x "
+                 f"{1 + LM_NEW} forwards) and nothing else")
+        if greedy.shape != (LM_BATCH, LM_NEW) or greedy.dtype != torch.int32 or not bool(
+                ((greedy >= 0) & (greedy < cfg.vocab_size)).all()):
+            fail(f"phase 14: greedy tokens {tuple(greedy.shape)} {greedy.dtype} out of range")
+        prefill_ms, steps, timed = lm_generate_timed(torch, acfg, params, prompts)
+        if not torch.equal(timed, greedy):
+            fail("phase 14: the timed loop's greedy tokens differ from Engine.generate's")
+        runs[absorb] = {"cfg": acfg, "greedy": greedy, "gen_s": gen_s,
+                        "prefill_ms": prefill_ms, "steps": steps, "norm": launches["norm"]}
+    peak = torch.cuda.max_memory_allocated()
+    for absorb, r in runs.items():
+        lm_profile(torch, r["cfg"], params, prompts, phase=f"phase 14 absorb={absorb}")
+    for absorb, r in runs.items():
+        step_ms = statistics.median(r["steps"])
+        say(f"phase 14 Engine.generate absorb={absorb}, batch {LM_BATCH} x prompt "
+            f"{LM_PROMPT} + {LM_NEW} new: {r['gen_s']:.3f} s; prefill "
+            f"{r['prefill_ms']:.3f} ms (median of {TIMED_REPS}), decode {step_ms:.3f} ms "
+            f"a step (median of {LM_NEW}; min {min(r['steps']):.3f}, max "
+            f"{max(r['steps']):.3f}), {LM_BATCH / step_ms * 1e3:.1f} tokens/s; norm "
+            f"kernel launches {r['norm']} ({n_moe} MoE layer x {1 + LM_NEW} forwards); "
+            f"{card}")
+    same = int((runs[False]["greedy"] == runs[True]["greedy"]).sum())
+    say(f"phase 14 peak memory {peak / 1e9:.2f} GB (gate 80); greedy tokens of the "
+        f"absorbed path equal to the naive path's on {same} of {LM_BATCH * LM_NEW}; {card}")
+    if peak > 80e9:
+        fail(f"phase 14: peak memory {peak / 1e9:.2f} GB")
+
+    # ---- (b) gates ----------------------------------------------------------
+    w = next(layer["ffn"]["router"] for layer, spec in zip(params["layers"],
+             cfg.layer_specs()) if spec.moe).detach()
+    e, d = w.shape
+    if norm_variant(e, d) != NORM_SHORT_WIDE:
+        fail(f"phase 14: norm_variant{(e, d)} is not the short-wide variant")
+    got, ref = norms_cuda(w), norms_plain(w)
+    norm_err = score_error(got, ref, ref)
+    r = norm_checked(torch, "phase 14 norm at the DeepSeek-V3 router table (the model's)", w)
+    plain_ms, _ = event_ms(lambda: norms_plain(w))
+    sets = [(a, torch.empty((1, e), dtype=torch.float32, device="cuda"))
+            for a in cold_copies(w)]
+    alone_ms = device_ms("rayflex_norm", [norm_args(a, o, NORM_SHORT_WIDE) for a, o in sets])
+    del sets
+    say(f"phase 14 gates: the router's norms through norms_cuda (short-wide) within "
+        f"{scaled_error(got, ref, ref):.3g} |c|^2 of norms_plain (gate "
+        f"{SCORE_RTOL:g}); {ds_combine_gate(torch, runs[False]['cfg'], params, prompts)}")
+
+    naive = runs[False]["greedy"]
+    for dtype in ("float32", "bfloat16"):
+        dcfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        err, free, scale, flipped = ds_absorbed_vs_naive(torch, dcfg, params, prompts, naive)
+        tol = DS_ABSORB_TOL[dtype]
+        say(f"phase 14 absorbed against naive decode ({dtype}), teacher-forced on the "
+            f"naive path's {LM_NEW} greedy tokens at batch {LM_BATCH}: logits of the "
+            f"prefill and all {LM_NEW} steps at |logits| up to {scale:.3f}, routing "
+            f"forced to the naive path's, max |err| {err:.6g} (gate {tol:g}); routing "
+            f"by itself, {int(flipped.sum())} of {LM_BATCH} rows routed differently "
+            f"somewhere, max |err| {free:.6g} (control)")
+        if dtype == "float32" and bool(flipped.any()):
+            fail(f"phase 14: float32 absorbed and naive decode routed {int(flipped.sum())} "
+                 f"of {LM_BATCH} rows differently")
+        if not err <= tol:
+            fail(f"phase 14: {dtype} absorbed decode logits {err:.6g} from the naive "
+                 f"path's (gate {tol:g})")
+
+    torch.cuda.reset_peak_memory_stats()
+    gate_prompts = prompts[:DS_GATE_BATCH]
+    for dtype in ("float32", "bfloat16"):
+        for absorb in (False, True):
+            nodrop = dataclasses.replace(
+                cfg, compute_dtype=dtype,
+                mla=dataclasses.replace(cfg.mla, absorb=absorb),
+                moe=dataclasses.replace(cfg.moe, capacity_factor=DS_NODROP_CF))
+            free, forced, scale, flipped = lm_decode_vs_prefill(torch, nodrop, params,
+                                                                gate_prompts)
+            tol = DS_DECODE_TOL[dtype]
+            worst = float(forced.max())
+            say(f"phase 14 decode (absorb={absorb}) vs one prefill of "
+                f"{LM_PROMPT + LM_NEW} tokens ({dtype}, batch {DS_GATE_BATCH}, "
+                f"capacity_factor {DS_NODROP_CF:g}: no drops), last-step logits at "
+                f"|logits| up to {scale:.3f}: routing forced to the decode path's, max "
+                f"|err| per row {[round(float(v), 6) for v in forced]}, worst {worst:.6g} "
+                f"(gate {tol:g}); the prefill routing by itself, {int(flipped.sum())} of "
+                f"{DS_GATE_BATCH} rows routed differently somewhere, max |err| per row "
+                f"{[round(float(v), 6) for v in free]}")
+            if dtype == "float32" and bool(flipped.any()):
+                fail(f"phase 14: float32 decode (absorb={absorb}) and prefill routed "
+                     f"{int(flipped.sum())} of {DS_GATE_BATCH} rows differently")
+            if not worst <= tol:
+                fail(f"phase 14: {dtype} decode (absorb={absorb}) logits {worst:.6g} from "
+                     f"the full prefill's with the same routing (gate {tol:g})")
+    gate_peak = torch.cuda.max_memory_allocated()
+    say(f"phase 14 decode-vs-prefill gates at batch {DS_GATE_BATCH}: peak memory "
+        f"{gate_peak / 1e9:.2f} GB (gate 75); {card}")
+    if gate_peak > 75e9:
+        fail(f"phase 14: the no-drop gates peaked at {gate_peak / 1e9:.2f} GB")
+    n_launch = runs[False]["norm"]
+    del params, w, got, ref, runs, prompts, gate_prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 14 seconds: {time.perf_counter() - t_phase:.1f}")
+
+    # the norm kernel at the model's router, in the model (row 5c)
+    dev = r["norms_cuda"]["device_us"]
+    bound = bound_ms(4.0 * (e * d + e), 2.0 * e * d)
+    name = "norm (DeepSeek-V3 router)"
+    row = kernel_row(name, "distance.cu", "src/repro/kernels/distance.py:65",
+                     {name: n_launch}, alone_ms if dev is None else dev / 1e3, plain_ms,
+                     norm_err, bound, r["vector_norm"]["window_ms"],
+                     wrapper_ms=r["norms_cuda"]["window_ms"])
+    row["alone_ms"] = alone_ms
+    row["host_us"] = r["norms_cuda"]["host_us"]
+    return [row]
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_dir():
         fail(f"{SRC / 'repro_torch'} or {GOLDEN} missing: run from a "
@@ -2906,6 +3229,7 @@ def main() -> None:
     phase_serving(torch, vectors[0], vectors[1])
     del stage_jobs, vectors
     kernels += phase_lm(torch, card)
+    kernels += phase_deepseek(torch, card)
 
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -145,10 +145,12 @@ def _tensor(x, device) -> torch.Tensor:
 
 
 def _modules(tree, device):
-    """A dict of dicts of arrays -> ``nn.ModuleDict`` / ``nn.ParameterDict``."""
+    """A dict of dicts of arrays -> ``nn.ModuleDict`` (dicts only) or
+    ``nn.ParameterDict`` (arrays, and any dicts beside them)."""
     if all(isinstance(v, dict) for v in tree.values()):
         return nn.ModuleDict({k: _modules(v, device) for k, v in tree.items()})
-    return nn.ParameterDict({k: nn.Parameter(_tensor(v, device))
+    return nn.ParameterDict({k: _modules(v, device) if isinstance(v, dict)
+                             else nn.Parameter(_tensor(v, device))
                              for k, v in tree.items()})
 
 
@@ -156,7 +158,8 @@ def model_params_from_numpy(cfg: ModelConfig, params, *, device=None) -> nn.Modu
     """A ``repro`` parameter tree with numpy leaves (for example
     ``jax.tree.map(np.asarray, params)``) -> the port's modules: the
     reference's stacked segment arrays split into one block per layer, in
-    layer order."""
+    layer order, and the MTP head, where the tree has one, with its block
+    unstacked."""
     device = resolve_device(device)
     layers = []
     for (pattern, repeats), seg in zip(derive_segments(cfg), params["segments"],
@@ -167,9 +170,13 @@ def model_params_from_numpy(cfg: ModelConfig, params, *, device=None) -> nn.Modu
         for r in range(repeats):
             for blk in seg:
                 layers.append(_modules(_slice(blk, r), device))
-    return nn.ModuleDict({"embed": _modules(params["embed"], device),
-                          "layers": nn.ModuleList(layers),
-                          "final_norm": _modules(params["final_norm"], device)})
+    out = nn.ModuleDict({"embed": _modules(params["embed"], device),
+                         "layers": nn.ModuleList(layers),
+                         "final_norm": _modules(params["final_norm"], device)})
+    if "mtp" in params:  # its one block stacked on a leading axis of 1
+        mtp = params["mtp"]
+        out["mtp"] = _modules({**mtp, "block": _slice(mtp["block"], 0)}, device)
+    return out
 
 
 def _slice(tree, r):

@@ -166,10 +166,11 @@ def distance_cuda(q: torch.Tensor, c: torch.Tensor, *,
     if not q.is_cuda:
         return distance_plain(q, c, mode)
     f32 = torch.float32
+    dev = q.device
     ptr_q = nvcc.check_cuda("q", q, f32, (m, d))
-    ptr_c = nvcc.check_cuda("c", c, f32, (n, d))
-    out = torch.empty((m, n), dtype=f32, device=q.device)
-    nvcc.launch("rayflex_distance", ptr_q, ptr_c, out.data_ptr(), m, n, d,
+    ptr_c = nvcc.check_cuda("c", c, f32, (n, d), dev)
+    out = torch.empty((m, n), dtype=f32, device=dev)
+    nvcc.launch("rayflex_distance", dev, ptr_q, ptr_c, out.data_ptr(), m, n, d,
                 MODES.index(mode))
     return out
 
@@ -220,5 +221,5 @@ def norms_cuda(c: torch.Tensor) -> torch.Tensor:
     n, d = c.shape
     ptr_c = nvcc.check_cuda("c", c, torch.float32, (n, d))
     out = c.new_empty((1, n))
-    nvcc.launch("rayflex_norm", ptr_c, out.data_ptr(), n, d, norm_variant(n, d))
+    nvcc.launch("rayflex_norm", c.device, ptr_c, out.data_ptr(), n, d, norm_variant(n, d))
     return out

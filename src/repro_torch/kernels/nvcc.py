@@ -150,13 +150,17 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point ``name`` on the current CUDA stream, count the
-    launch, and raise if it returned a CUDA error.
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C entry point ``name`` on ``device``'s current CUDA stream, count
+    the launch, and raise if it returned a CUDA error.
 
-    The entry point is bound once (:func:`library`), and the stream is
-    read as the raw handle of the current device's current stream: the
-    handle ``torch.cuda.current_stream().cuda_stream`` gives, without the
+    ``device`` is the one the kernel's operands live on (each wrapper
+    passes its first operand's, and :func:`check_cuda` holds every other
+    operand to it).  The entry points launch on the current device, so a
+    device other than the current one is entered for the call, and only
+    then.  The entry point is bound once (:func:`library`), and the stream
+    is read as a raw handle: the handle
+    ``torch.cuda.current_stream().cuda_stream`` gives, without the
     ``Stream`` object it builds a call (0.5 against 6.9 us on the H100
     machine's host)."""
     entry = _entries.get(name)
@@ -164,7 +168,12 @@ def launch(name: str, *args) -> None:
         library()
         entry = _entries[name]
     fn, counted = entry
-    err = fn(*args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
+    current = torch._C._cuda_getDevice()
+    if device.index in (None, current):
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    else:
+        with torch.cuda.device(device.index):
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
     if err != 0:
         msg = _lib.rayflex_error_string(err).decode()
         raise RuntimeError(f"{name} failed: CUDA error {err} ({msg})")
@@ -172,10 +181,14 @@ def launch(name: str, *args) -> None:
 
 
 def check_cuda(name: str, t: torch.Tensor, dtype: torch.dtype,
-               shape: tuple) -> int:
-    """Validate one kernel operand; returns its data pointer."""
+               shape: tuple, device: torch.device | None = None) -> int:
+    """Validate one kernel operand (on ``device``, where given: the other
+    operands' device); returns its data pointer."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, the kernel's other operands on "
+                         f"{device}: one launch runs on one device")
     if t.dtype != dtype:
         raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):

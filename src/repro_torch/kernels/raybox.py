@@ -36,15 +36,15 @@ def raybox(org, inv, neg, box_lo, box_hi):
     if not org.is_cuda:
         return raybox_plain(org, inv, neg, box_lo, box_hi)
     n = org.shape[1]
-    f32 = torch.float32
+    f32, dev = torch.float32, org.device
     ptrs = [nvcc.check_cuda("org", org, f32, (3, n)),
-            nvcc.check_cuda("inv", inv, f32, (3, n)),
-            nvcc.check_cuda("neg", neg, f32, (3, n)),
-            nvcc.check_cuda("box_lo", box_lo, f32, (12, n)),
-            nvcc.check_cuda("box_hi", box_hi, f32, (12, n))]
-    tmin = torch.empty((4, n), dtype=f32, device=org.device)
-    idx = torch.empty((4, n), dtype=torch.int32, device=org.device)
-    hit = torch.empty((4, n), dtype=torch.int32, device=org.device)
-    nvcc.launch("rayflex_raybox", *ptrs, tmin.data_ptr(), idx.data_ptr(),
+            nvcc.check_cuda("inv", inv, f32, (3, n), dev),
+            nvcc.check_cuda("neg", neg, f32, (3, n), dev),
+            nvcc.check_cuda("box_lo", box_lo, f32, (12, n), dev),
+            nvcc.check_cuda("box_hi", box_hi, f32, (12, n), dev)]
+    tmin = torch.empty((4, n), dtype=f32, device=dev)
+    idx = torch.empty((4, n), dtype=torch.int32, device=dev)
+    hit = torch.empty((4, n), dtype=torch.int32, device=dev)
+    nvcc.launch("rayflex_raybox", dev, *ptrs, tmin.data_ptr(), idx.data_ptr(),
                 hit.data_ptr(), n)
     return tmin, idx, hit

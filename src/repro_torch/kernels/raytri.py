@@ -32,16 +32,16 @@ def raytri(org, shear, k, va, vb, vc):
     if not org.is_cuda:
         return raytri_plain(org, shear, k, va, vb, vc)
     n = org.shape[1]
-    f32 = torch.float32
+    f32, dev = torch.float32, org.device
     ptrs = [nvcc.check_cuda("org", org, f32, (3, n)),
-            nvcc.check_cuda("shear", shear, f32, (3, n)),
-            nvcc.check_cuda("k", k, torch.int32, (3, n)),
-            nvcc.check_cuda("va", va, f32, (3, n)),
-            nvcc.check_cuda("vb", vb, f32, (3, n)),
-            nvcc.check_cuda("vc", vc, f32, (3, n))]
-    t_num = torch.empty((n,), dtype=f32, device=org.device)
-    t_denom = torch.empty((n,), dtype=f32, device=org.device)
-    hit = torch.empty((n,), dtype=torch.int32, device=org.device)
-    nvcc.launch("rayflex_raytri", *ptrs, t_num.data_ptr(), t_denom.data_ptr(),
+            nvcc.check_cuda("shear", shear, f32, (3, n), dev),
+            nvcc.check_cuda("k", k, torch.int32, (3, n), dev),
+            nvcc.check_cuda("va", va, f32, (3, n), dev),
+            nvcc.check_cuda("vb", vb, f32, (3, n), dev),
+            nvcc.check_cuda("vc", vc, f32, (3, n), dev)]
+    t_num = torch.empty((n,), dtype=f32, device=dev)
+    t_denom = torch.empty((n,), dtype=f32, device=dev)
+    hit = torch.empty((n,), dtype=torch.int32, device=dev)
+    nvcc.launch("rayflex_raytri", dev, *ptrs, t_num.data_ptr(), t_denom.data_ptr(),
                 hit.data_ptr(), n)
     return t_num, t_denom, hit

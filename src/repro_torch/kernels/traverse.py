@@ -217,8 +217,9 @@ def traverse_packed(packed: PackedBVH, rays: Ray, depth: int, *,
     n_inner = level_offset(depth - 1, arity)
     ptr_rays = nvcc.check_cuda("rays", ray_op, f32, (N_RAY_ROWS, n_pad))
     ptr_kids = nvcc.check_cuda("kids", packed.kids, config.packed_box_dtype,
-                               (n_inner, 6 * arity))
-    ptr_slots = nvcc.check_cuda("slots", packed.slots, f32, (arity**depth, SLOT_WORDS))
+                               (n_inner, 6 * arity), device)
+    ptr_slots = nvcc.check_cuda("slots", packed.slots, f32, (arity**depth, SLOT_WORDS),
+                                device)
     if ptr_kids % 16 or ptr_slots % 16:
         raise ValueError("the packed tree's operands must be 16-byte aligned")
     t = torch.empty((n,), dtype=f32, device=device)
@@ -229,7 +230,7 @@ def traverse_packed(packed: PackedBVH, rays: Ray, depth: int, *,
     # a stack deeper than the kernel's local array lives in device scratch
     scratch = (torch.empty((config.stack_size, n), dtype=i32, device=device)
                if config.stack_size > LOCAL_STACK else None)
-    nvcc.launch("rayflex_traverse", ptr_rays, n_pad, n, ptr_kids, ptr_slots, n_inner,
+    nvcc.launch("rayflex_traverse", device, ptr_rays, n_pad, n, ptr_kids, ptr_slots, n_inner,
                 int(max_rounds), int(ray_type != "closest"), float(t_min),
                 config.stack_size, arity, int(config.packed_box_dtype == torch.bfloat16),
                 0 if scratch is None else scratch.data_ptr(),
@@ -358,14 +359,15 @@ def neighbor_launch(packed: PackedPointBVH, ray_op: torch.Tensor,
     capacity = 0 if variant == "global" else variant
     f32, i32 = torch.float32, torch.int32
     n_pad, n_leaf = ceil_to(n, LANES), 4**depth
+    device = ray_op.device
     ptrs = [nvcc.check_cuda("rays", ray_op, f32, (N_RAY_ROWS, n_pad)),
-            0 if order is None else nvcc.check_cuda("order", order, i32, (n,)),
-            nvcc.check_cuda("kids", packed.kids, f32, (level_offset(depth - 1), 24)),
-            nvcc.check_cuda("leaf", packed.leaf, i32, (n_leaf,)),
-            nvcc.check_cuda("pts", packed.pts, f32, (n_leaf, 4))]
+            0 if order is None else nvcc.check_cuda("order", order, i32, (n,), device),
+            nvcc.check_cuda("kids", packed.kids, f32, (level_offset(depth - 1), 24),
+                            device),
+            nvcc.check_cuda("leaf", packed.leaf, i32, (n_leaf,), device),
+            nvcc.check_cuda("pts", packed.pts, f32, (n_leaf, 4), device)]
     if any(p % 16 for p in ptrs[2:]):
         raise ValueError("the packed tree's operands must be 16-byte aligned")
-    device = ray_op.device
     dist = torch.empty((k, n), dtype=f32, device=device)
     index = torch.empty((k, n), dtype=i32, device=device)
     count = torch.empty((n,), dtype=i32, device=device)
@@ -379,7 +381,7 @@ def neighbor_launch(packed: PackedPointBVH, ray_op: torch.Tensor,
     # rounds them (a Python float against an f32 tensor)
     slack_mul = float(np.float32(1.0 + PRUNE_SLACK))
     slack_add = float(np.float32(PRUNE_SLACK))
-    nvcc.launch("rayflex_neighbor", ptrs[0], n_pad, n, ptrs[1], *ptrs[2:],
+    nvcc.launch("rayflex_neighbor", device, ptrs[0], n_pad, n, ptrs[1], *ptrs[2:],
                 level_offset(depth - 1), int(max_rounds), int(k),
                 int(mode == "nearest"), slack_mul, slack_add, capacity,
                 dist.data_ptr(), index.data_ptr(), count.data_ptr(),

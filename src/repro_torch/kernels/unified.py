@@ -148,12 +148,12 @@ def unified(opcodes: torch.Tensor, operands: torch.Tensor) -> torch.Tensor:
     if not operands.is_cuda:
         return unified_plain(opcodes, operands)
     t = _check_shapes(opcodes, operands)
-    ptrs = [nvcc.check_cuda("opcodes", opcodes, torch.int32, (t,)),
+    dev = operands.device
+    ptrs = [nvcc.check_cuda("opcodes", opcodes, torch.int32, (t,), dev),
             nvcc.check_cuda("operands", operands, torch.float32,
                             (N_OPERAND_ROWS, t * LANES))]
-    out = torch.empty((N_OUTPUT_ROWS, t * LANES), dtype=torch.float32,
-                      device=operands.device)
+    out = torch.empty((N_OUTPUT_ROWS, t * LANES), dtype=torch.float32, device=dev)
     # scratch: the first euclidean and angular beat, then each beat's mode
-    scratch = torch.full((t + 2,), t, dtype=torch.int32, device=operands.device)
-    nvcc.launch("rayflex_unified", *ptrs, out.data_ptr(), scratch.data_ptr(), t)
+    scratch = torch.full((t + 2,), t, dtype=torch.int32, device=dev)
+    nvcc.launch("rayflex_unified", dev, *ptrs, out.data_ptr(), scratch.data_ptr(), t)
     return out

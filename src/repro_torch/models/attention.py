@@ -1,13 +1,18 @@
-"""Attention mixers: GQA / MQA / MHA, chunked flash-style.
+"""Attention mixers: GQA / MQA / MHA (chunked flash-style) and DeepSeek MLA.
 
 Two execution regimes share the math, as in the reference:
 
-* ``gqa_apply``  -- full sequence (prefill).  Attention runs chunked with an
+* ``*_apply``  -- full sequence (prefill).  Attention runs chunked with an
   online-softmax accumulator: a Python loop over q chunks, and for each an
   ordered loop over the kv chunks at or before it (causal), so the (qc, kc)
   score tile stays bounded.
-* ``gqa_decode`` -- one new token against a cached KV, written in place at
+* ``*_decode`` -- one new token against a cached KV, written in place at
   ``length``.
+
+MLA (DeepSeek-V3) caches the compressed latent (kv_lora + k_rope) and
+decodes on two paths: naive (expand k / v per step) and absorbed (``W_uk``
+folded into the query, ``W_uv`` into the output, attending in the latent
+space).
 
 Scores and the probability-weighted values are float32 products of the
 compute-dtype operands (the reference's ``preferred_element_type=f32``):
@@ -15,8 +20,7 @@ the operands are widened to float32, where a product of two bf16 values is
 exact, and multiplied without TF32 (``layers.exact_products``).  This is
 not ``scaled_dot_product_attention``, which rounds and masks otherwise.
 
-MLA (DeepSeek) and cross-attention (Whisper) are still to port
-(``ROADMAP.md``).
+Cross-attention (Whisper) is still to port (``ROADMAP.md``).
 """
 from __future__ import annotations
 
@@ -25,12 +29,11 @@ import math
 import torch
 from torch import nn
 
-from .config import ModelConfig
-from .layers import apply_rope, cast, dense_init, zeros
+from .config import MLAConfig, ModelConfig
+from .layers import apply_rope, cast, dense_init, norm_apply, norm_init, zeros
 
 NEG_INF = -1e30
 
-_MLA_TODO = "MLA attention is not ported yet: it waits for DeepSeek (ROADMAP.md)"
 CROSS_TODO = ("cross-attention is not ported yet: it waits for the audio "
               "family (ROADMAP.md)")
 
@@ -198,13 +201,95 @@ def gqa_decode(cfg: ModelConfig, ctx, p, x, cache_k, cache_v, length: int):
     return _out(o, p["wo"]), cache_k, cache_v
 
 
-def mla_init(rng, cfg: ModelConfig):
-    raise NotImplementedError(_MLA_TODO)
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): low-rank q/kv with decoupled rope, latent KV cache
+# ---------------------------------------------------------------------------
+
+
+def mla_init(rng, cfg: ModelConfig) -> nn.ParameterDict:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    return nn.ParameterDict({
+        "wdq": dense_init(rng, (d, m.q_lora_rank)),
+        "q_norm": norm_init(cfg, m.q_lora_rank, device=rng.device),
+        "wuq": dense_init(rng, (m.q_lora_rank, h, dn + dr)),
+        "wdkv": dense_init(rng, (d, m.kv_lora_rank + dr)),
+        "kv_norm": norm_init(cfg, m.kv_lora_rank, device=rng.device),
+        "wuk": dense_init(rng, (m.kv_lora_rank, h, dn)),
+        "wuv": dense_init(rng, (m.kv_lora_rank, h, dv)),
+        "wo": dense_init(rng, (h, dv, d), in_axis=(0, 1)),
+    })
+
+
+def _mla_qkv(cfg, p, x, positions):
+    """The low-rank projections.  Returns q_nope (B,T,H,dn), q_rope
+    (B,T,H,dr) rotated, the latent c_kv (B,T,kv_lora) and the one shared
+    rope key k_rope (B,T,dr) rotated."""
+    m: MLAConfig = cfg.mla
+    dn = m.qk_nope_head_dim
+    dt = x.dtype
+    cq = norm_apply(cfg, p["q_norm"], x @ cast(p["wdq"], dt))
+    q = _project(cq, p["wuq"])
+    q_nope, q_rope = q[..., :dn], apply_rope(cfg, q[..., dn:], positions)
+    dkv = x @ cast(p["wdkv"], dt)  # (B,T, kv_lora + dr)
+    c_kv = norm_apply(cfg, p["kv_norm"], dkv[..., :m.kv_lora_rank])
+    k_rope = apply_rope(cfg, dkv[..., None, m.kv_lora_rank:], positions)  # 1 head
+    return q_nope, q_rope, c_kv, k_rope[..., 0, :]
 
 
 def mla_apply(cfg: ModelConfig, ctx, p, x, positions, *, causal=True):
-    raise NotImplementedError(_MLA_TODO)
+    """Full-sequence MLA (prefill).  Returns (out (B,T,D), (c_kv, k_rope)),
+    the latent cache entries."""
+    m: MLAConfig = cfg.mla
+    b, t, _ = x.shape
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(cfg, p, x, positions)
+    k_nope, v = _project(c_kv, p["wuk"]), _project(c_kv, p["wuv"])
+    q = ctx.act_bthd(torch.cat([q_nope, q_rope], dim=-1))
+    k = ctx.act_bthd(torch.cat(
+        [k_nope, k_rope[:, :, None, :].expand(b, t, cfg.num_heads, dr)], dim=-1))
+    v = ctx.act_bthd(v)
+    o = chunked_causal_attention(q, k, v, chunk=cfg.attn_chunk, causal=causal,
+                                 scale=1.0 / math.sqrt(dn + dr))
+    o = ctx.act_bthd(o)
+    return _out(o, p["wo"]), (c_kv, k_rope)
 
 
-def mla_decode(cfg: ModelConfig, ctx, p, x, cache_ckv, cache_krope, length):
-    raise NotImplementedError(_MLA_TODO)
+def mla_decode(cfg: ModelConfig, ctx, p, x, cache_ckv, cache_krope, length: int):
+    """One-token MLA decode over the latent cache (B,S,kv_lora) + (B,S,dr),
+    written in place at position ``length`` (a host integer).  Returns
+    (out, cache_ckv, cache_krope).
+
+    ``cfg.mla.absorb`` picks the path: naive (expand k and v for every
+    cached position each step) or absorbed (``W_uk`` folded into the
+    query and ``W_uv`` into the output, attending in the latent space).
+    The absorbed path's scores and latent output are float32 products of
+    the compute-dtype operands, as the reference's
+    ``preferred_element_type=f32``; the latent output is then rounded to
+    the compute dtype, as there."""
+    m: MLAConfig = cfg.mla
+    b = x.shape[0]
+    dn, dr = m.qk_nope_head_dim, m.qk_rope_head_dim
+    pos = torch.full((b, 1), length, dtype=torch.int32, device=x.device)
+    q_nope, q_rope, c_kv_new, k_rope_new = _mla_qkv(cfg, p, x, pos)
+    cache_ckv[:, length] = c_kv_new[:, 0]
+    cache_krope[:, length] = k_rope_new[:, 0]
+    dt = x.dtype
+    ckv, krope = cache_ckv.to(dt), cache_krope.to(dt)
+    scale = 1.0 / math.sqrt(dn + dr)
+    if m.absorb:
+        q_lat = torch.einsum("bthk,rhk->bthr", q_nope, cast(p["wuk"], dt))
+        sc = (torch.einsum("bthr,bsr->bhts", q_lat.float(), ckv.float())
+              + torch.einsum("bthk,bsk->bhts", q_rope.float(), krope.float())) * scale
+        mask = torch.arange(ckv.shape[1], device=x.device) < length + 1
+        pby = torch.softmax(torch.where(mask, sc, NEG_INF), dim=-1)
+        o_lat = torch.einsum("bhts,bsr->bthr", pby.to(dt).float(), ckv.float()).to(dt)
+        o = torch.einsum("bthr,rhk->bthk", o_lat, cast(p["wuv"], dt))
+    else:
+        k_nope, v = _project(ckv, p["wuk"]), _project(ckv, p["wuv"])
+        k = torch.cat([k_nope, krope[:, :, None, :].expand(k_nope.shape[:3] + (dr,))],
+                      dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        o = decode_attention(q, k, v, length + 1, scale=scale)
+    return _out(o, p["wo"]), cache_ckv, cache_krope

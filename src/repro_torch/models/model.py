@@ -1,18 +1,18 @@
 """Public model API: init / prefill / decode_step / init_cache.
 
-The port serves the language-model families whose blocks are GQA
+The port serves the language-model families whose blocks are GQA or MLA
 attention with a dense or MoE FFN (``dense``, ``moe``).  Parameters are an
-``nn.ModuleDict``: ``embed`` and ``final_norm`` (``nn.ParameterDict``) and
+``nn.ModuleDict``: ``embed`` and ``final_norm`` (``nn.ParameterDict``),
 ``layers``, one ``nn.ModuleDict`` block per layer (``models.transformer``),
-float32 master weights on one device.  Caches are dicts: ``{"segs":
+and, where ``mtp_depth > 0``, ``mtp``: the multi-token-prediction head,
+which only training reads; float32 master weights on one device.  Caches are dicts: ``{"segs":
 [per-segment stacked block buffers], "len": host int}``; ``prefill`` and
 ``decode_step`` write the buffers in place (the reference donates them)
 and return the cache with its new length, so a decode step reads nothing
 back from the device.
 
 Still to port (``ROADMAP.md``, queue 1): the ``audio`` and ``vlm``
-families, MLA with multi-token prediction (DeepSeek), the Mamba and RWKV
-mixers, and ``train_loss``.
+families, the Mamba and RWKV mixers, and ``train_loss`` with the MTP loss.
 """
 from __future__ import annotations
 
@@ -20,11 +20,12 @@ import torch
 from torch import nn
 
 from ..core.device import resolve_device
-from .config import ModelConfig
-from .layers import (compute_dtype, embed_apply, embed_init, exact_products,
-                     logits_apply, norm_apply, norm_init, sinusoidal_pos)
+from .config import LayerSpec, ModelConfig
+from .layers import (compute_dtype, dense_init, embed_apply, embed_init,
+                     exact_products, logits_apply, norm_apply, norm_init,
+                     sinusoidal_pos)
 from .moe import count_moe_params
-from .transformer import stack_apply, stack_cache_shapes, stack_init
+from .transformer import block_init, stack_apply, stack_cache_shapes, stack_init
 
 
 def check_ported(cfg: ModelConfig) -> None:
@@ -33,10 +34,6 @@ def check_ported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"the {cfg.family} family ({cfg.name}) is not ported yet: it "
             "waits in ROADMAP.md, queue 1")
-    if cfg.mtp_depth > 0:
-        raise NotImplementedError(
-            f"multi-token prediction (mtp_depth={cfg.mtp_depth}, {cfg.name}) "
-            "is not ported yet: it waits for DeepSeek in ROADMAP.md, queue 1")
 
 
 # ---------------------------------------------------------------------------
@@ -54,11 +51,21 @@ def init_params(rng, cfg: ModelConfig, device=None) -> nn.ModuleDict:
         rng = torch.Generator(device=device).manual_seed(int(rng))
     elif rng.device.type != device.type:
         raise ValueError(f"generator on {rng.device}, parameters on {device}")
-    return nn.ModuleDict({
+    params = nn.ModuleDict({
         "embed": embed_init(rng, cfg),
         "layers": stack_init(rng, cfg),
         "final_norm": norm_init(cfg, device=device),
     })
+    if cfg.mtp_depth > 0:
+        # the reference's ``mtp`` tree; its block is one dense layer
+        params["mtp"] = nn.ParameterDict({
+            "proj": dense_init(rng, (2 * cfg.d_model, cfg.d_model)),
+            "norm_h": norm_init(cfg, device=device),
+            "norm_e": norm_init(cfg, device=device),
+            "block": block_init(rng, cfg, LayerSpec(mixer="attn", moe=False)),
+            "final_norm": norm_init(cfg, device=device),
+        })
+    return params
 
 
 def params_device(params) -> torch.device:
@@ -93,6 +100,14 @@ def forward(cfg: ModelConfig, ctx, params, batch, mode="train", caches=None):
                                segs, length)
     h = norm_apply(cfg, params["final_norm"], h)
     return h, labels, aux, segs, None
+
+
+def train_loss(cfg: ModelConfig, ctx, params, batch, aux_weight=0.01):
+    """The training loss, with the MTP head's (the only reader of
+    ``params["mtp"]``): still to port."""
+    raise NotImplementedError(
+        "training (train_loss, lm_loss and the MTP loss) is not ported yet: it "
+        "waits in ROADMAP.md, queue 1, item 1.5")
 
 
 # ---------------------------------------------------------------------------

@@ -11,7 +11,8 @@ Dispatch is the reference's capacity gather: each (token, choice) takes the
 next slot of its expert in token-major order, a choice past the expert's
 capacity ``C`` is dropped (GShard semantics), the kept tokens are gathered
 into an (E, C, D) block, run through their experts' gated MLPs, weighted
-and scatter-added back.  Expert parallelism over a mesh is still to port.
+and added back onto each token in the reference's (expert, slot) order
+(:func:`moe_combine`).  Expert parallelism over a mesh is still to port.
 """
 from __future__ import annotations
 
@@ -124,31 +125,40 @@ def moe_dispatch(n: int, weights, experts, e_loc: int, expert_offset: int,
             gather_w[:-1].reshape(e_loc, capacity), src)
 
 
+def moe_combine(flat: torch.Tensor, src: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """The combine of :func:`moe_local`: ``flat`` (E_loc * C + 1, D) holds
+    the gated expert outputs slot by slot, then a zero row that dropped
+    choices read; ``src`` (N*k,) is :func:`moe_dispatch`'s.  Each token's
+    kept contributions are added onto 0 in ascending (expert, slot) order,
+    the order of the reference's scatter-add over its (E_loc, C) table; a
+    token's dropped choices (``src = E_loc * C``) sort last and add +0.
+    One gather-add per choice rank, no atomics, so the card gives the same
+    bits on every run."""
+    order = src.view(n, k).sort(dim=1).values
+    out = flat.new_zeros((n, flat.shape[1]))
+    for j in range(k):
+        out += flat[order[:, j]]
+    return out
+
+
 def moe_local(cfg: ModelConfig, x_flat, weights, experts, wi, wg, wo,
               expert_offset: int, capacity: int):
     """Capacity-gather MoE over a local expert slice [offset, offset+E_loc).
 
     x_flat (N, D); weights/experts (N, k); expert weights (E_loc, D, F) etc.
-    Returns (N, D), the contributions of the local experts."""
+    Returns (N, D), the contributions of the local experts, combined as
+    :func:`moe_combine` adds them."""
     n, d = x_flat.shape
-    k = experts.shape[1]
     table, gather_w, src = moe_dispatch(n, weights, experts, wi.shape[0],
                                         expert_offset, capacity)
     x_pad = torch.cat([x_flat, x_flat.new_zeros((1, d))], 0)
     xs = x_pad[table]  # (E_loc, C, D)
     ys = _expert_ffn(cfg, wi, wg, wo, xs)
-    ys = ys * gather_w[..., None].to(ys.dtype)
-    # combine: each (token, choice)'s expert output (0 where dropped), added
-    # onto 0 in choice order.  The reference scatter-adds in (expert, slot)
-    # order; with top_k <= 2 a row has at most two addends onto 0, whose
-    # sum is the same in either order.  top_k > 2 (DeepSeek) needs the
-    # reference's order.
-    ys_pad = torch.cat([ys.reshape(-1, d), ys.new_zeros((1, d))], 0)
-    parts = ys_pad[src].reshape(n, k, d)
-    out = ys.new_zeros((n, d))
-    for j in range(k):
-        out = out + parts[:, j]
-    return out
+    # the gated outputs, slot by slot, and the zero row of the drops
+    flat = torch.cat([ys.reshape(-1, d), ys.new_zeros((1, d))])
+    del ys
+    flat[:-1] *= gather_w.reshape(-1, 1).to(flat.dtype)
+    return moe_combine(flat, src, n, experts.shape[1])
 
 
 def moe_apply(cfg: ModelConfig, ctx, p, x):

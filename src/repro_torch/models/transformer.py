@@ -1,7 +1,7 @@
 """Block assembly and the layer stack.
 
-A *block* is one layer: pre-norm mixer (attention; MLA, Mamba and RWKV are
-still to port) plus pre-norm FFN (MLP or MoE).  Each block's parameters
+A *block* is one layer: pre-norm mixer (GQA or MLA attention; Mamba and
+RWKV are still to port) plus pre-norm FFN (MLP or MoE).  Each block's parameters
 are an ``nn.ModuleDict`` (``norm1``, ``mixer``, ``norm2``, ``ffn``: the
 reference's per-block dict), one per layer in an ``nn.ModuleList``; the
 stack runs them in layer order, which is the order of the reference's
@@ -109,7 +109,15 @@ def block_apply(cfg: ModelConfig, ctx, spec: LayerSpec, p, h, positions,
     elif spec.mixer == "rwkv":
         y, _ = rk.rwkv_time_apply(cfg, ctx, p["mixer"], x)
     elif cfg.attention == "mla":
-        y, _ = attn.mla_apply(cfg, ctx, p["mixer"], x, positions)
+        if mode == "decode":
+            y, _, _ = attn.mla_decode(cfg, ctx, p["mixer"], x, cache["ckv"],
+                                      cache["krope"], length)
+        else:
+            y, (c_kv, k_rope) = attn.mla_apply(cfg, ctx, p["mixer"], x, positions,
+                                               causal=cfg.causal)
+            if mode == "prefill":
+                _fill(cache["ckv"], c_kv)
+                _fill(cache["krope"], k_rope)
     elif mode == "decode":
         y, _, _ = attn.gqa_decode(cfg, ctx, p["mixer"], x, cache["k"], cache["v"],
                                   length)

@@ -690,6 +690,114 @@ def test_moe_local_on_the_card_matches_the_cpu(cuda, dtype):
     assert bool((got[csrc.reshape(512, 2).eq(16 * cap).all(1)] == 0).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_combine_on_the_card_is_deterministic_and_equals_the_cpu(cuda, dtype):
+    """The top-8 combine over 512 tokens and 64 experts of capacity 48,
+    drops included: two runs on the card bit-equal, and bit-equal to the
+    CPU's on the same gated expert outputs (one add a rank, in (expert,
+    slot) order: no atomics)."""
+    from repro_torch.models.moe import moe_combine, moe_dispatch
+    n, k, e, cap, d = 512, 8, 64, 48, 256
+    rng = np.random.default_rng(26)
+    experts = torch.as_tensor(np.argsort(rng.normal(size=(n, e)), 1)[:, :k])
+    weights = torch.as_tensor(rng.uniform(0.05, 1.0, (n, k)).astype(np.float32))
+    _, _, src = moe_dispatch(n, weights, experts, e, 0, cap)
+    assert int((src == e * cap).sum()) > 0
+    flat = torch.as_tensor(rng.normal(size=(e * cap + 1, d)).astype(np.float32)).to(dtype)
+    flat[-1] = 0
+    want = moe_combine(flat, src, n, k)
+    runs = [moe_combine(flat.to(cuda), src.to(cuda), n, k) for _ in range(2)]
+    assert torch.equal(runs[0].view(torch.int16), runs[1].view(torch.int16))
+    assert torch.equal(runs[0].cpu().view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("absorb", [False, True])
+def test_mla_smoke_model_on_the_card_matches_the_cpu(cuda, absorb):
+    """DeepSeek-V3's smoke config (MLA, sigmoid routing, the MTP head's
+    parameters) in float32 on the card and the CPU from the same weights:
+    greedy tokens equal, every step's logits within 1e-4 (TF32 off, as
+    ``tests/test_torch_lm_serving.py`` holds the CPU to the reference)."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.parallel import NO_PARALLEL
+    from repro_torch.serving import Engine
+    cfg = get_smoke("deepseek-v3-671b")
+    cfg = dataclasses.replace(cfg, compute_dtype="float32",
+                              mla=dataclasses.replace(cfg.mla, absorb=absorb))
+    cpu_params = init_params(26, cfg, device="cpu")
+    gpu_params = copy.deepcopy(cpu_params).to(cuda)
+    toks = torch.as_tensor(np.random.default_rng(26).integers(0, cfg.vocab_size, (3, 12)),
+                           dtype=torch.int32)
+    want = Engine(cfg, cpu_params, max_len=24).generate(toks, 8)
+    got = Engine(cfg, gpu_params, max_len=24).generate(toks.to(cuda), 8)
+    assert torch.equal(got.cpu(), want)
+    logits = []
+    for params, dev in ((cpu_params, torch.device("cpu")), (gpu_params, cuda)):
+        out, cache = prefill(cfg, NO_PARALLEL, params, {"tokens": toks.to(dev)},
+                             init_cache(cfg, 3, 24, device=dev))
+        steps = [out.cpu()]
+        for i in range(8):
+            out, cache = decode_step(cfg, NO_PARALLEL, params, cache, want[:, i:i + 1].to(dev))
+            steps.append(out.cpu())
+        logits.append(torch.cat(steps, 1))
+    assert float((logits[1] - logits[0]).abs().max()) <= 1e-4
+
+
+def test_check_cuda_holds_each_operand_to_the_launch_device(cuda):
+    """On one card too: an operand is refused when the launch's device is
+    another, and passes on its own device."""
+    t = torch.zeros((2, 3), device=cuda)
+    assert nvcc.check_cuda("t", t, torch.float32, (2, 3), t.device) == t.data_ptr()
+    with pytest.raises(ValueError, match="one launch runs on one device"):
+        nvcc.check_cuda("t", t, torch.float32, (2, 3), torch.device("cuda", t.device.index + 1))
+
+
+def test_launches_run_on_the_operands_device(cuda):
+    """Operands on ``cuda:1`` while ``cuda:0`` is current: the norm,
+    distance and OpQuadbox kernels run on card 1 and give the bits they
+    give on card 0, the current device is left as it was; operands on two
+    devices are refused before any launch."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    one = torch.device("cuda:1")
+    gen = torch.Generator(device=one).manual_seed(26)
+    c = torch.randn((256, 7168), generator=gen, device=one)
+    q = torch.randn((64, 128), generator=gen, device=one)
+    db = torch.randn((300, 128), generator=gen, device=one)
+    rng = np.random.default_rng(26)
+    ray = _rays(rng, 257)
+    lo = rng.uniform(-3, 2, (12, 257)).astype(np.float32)
+    hi = (lo + rng.uniform(0, 3, (12, 257))).astype(np.float32)
+    box = (ray.origin.T.contiguous(), ray.inv.T.contiguous(),
+           torch.signbit(ray.direction).float().T.contiguous(),
+           torch.as_tensor(lo, device=cuda), torch.as_tensor(hi, device=cuda))
+    with torch.cuda.device(0):
+        before = nvcc.launch_counts()
+        got = {"norm": norms_cuda(c), "distance": distance_cuda(q, db),
+               "raybox": raybox(*(x.to(one) for x in box))}
+        assert torch.cuda.current_device() == 0
+        counts = nvcc.launch_counts()
+        for name in got:
+            assert counts.get(name, 0) == before.get(name, 0) + 1
+    torch.cuda.synchronize(one)
+    want = {"norm": norms_cuda(c.to("cuda:0")),
+            "distance": distance_cuda(q.to("cuda:0"), db.to("cuda:0")),
+            "raybox": raybox(*(x.to("cuda:0") for x in box))}
+    for name, out in got.items():
+        outs = out if isinstance(out, tuple) else (out,)
+        refs = want[name] if isinstance(want[name], tuple) else (want[name],)
+        for a, b in zip(outs, refs, strict=True):
+            assert a.device == one
+            assert _bits_equal(a.cpu(), b.cpu()), name
+    with pytest.raises(ValueError, match="one launch runs on one device"):
+        distance_cuda(q, db.to("cuda:0"))
+    with pytest.raises(ValueError, match="one launch runs on one device"):
+        raybox(*(x.to(one) for x in box[:-1]), box[-1].to("cuda:0"))
+
+
 # ---------------------------------------------------------------------------
 # operands past 2^31 elements: the kernels' row offsets are 64-bit
 # ---------------------------------------------------------------------------

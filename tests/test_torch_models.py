@@ -49,7 +49,7 @@ from repro_torch.parallel import ParallelCtx
 F32_RTOL, F32_ATOL = 2e-5, 2e-5
 #: the families the port serves; the rest raise until their slices
 SERVED = ("smollm-360m", "granite-34b", "chatglm3-6b", "stablelm-1.6b",
-          "phi3.5-moe-42b-a6.6b")
+          "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
 
 
 def _shared_state():
@@ -101,7 +101,8 @@ def tree_jax(p):
 
 def reference_params(cfg, params):
     """The port's per-layer modules -> the reference's parameter tree, each
-    segment's blocks stacked over its repeats (numpy leaves)."""
+    segment's blocks stacked over its repeats, and the MTP head (numpy
+    leaves)."""
     layers = [tree_numpy(blk) for blk in params["layers"]]
     segments, i = [], 0
     for pattern, repeats in derive_segments(cfg):
@@ -110,8 +111,12 @@ def reference_params(cfg, params):
                                       *[layers[i + r * per + j] for r in range(repeats)])
                          for j in range(per)])
         i += per * repeats
-    return {"embed": tree_numpy(params["embed"]), "segments": segments,
+    tree = {"embed": tree_numpy(params["embed"]), "segments": segments,
             "final_norm": tree_numpy(params["final_norm"])}
+    if "mtp" in params:  # the reference stacks its one block on an axis of 1
+        mtp = tree_numpy(params["mtp"])
+        tree["mtp"] = {**mtp, "block": jax.tree.map(lambda x: x[None], mtp["block"])}
+    return tree
 
 
 def close(got, want, rtol=F32_RTOL, atol=F32_ATOL, what=""):
@@ -168,7 +173,7 @@ def test_init_params_counts_and_converts_back(arch):
     params = init_params(gen(), cfg, device="cpu")
     assert sum(p.numel() for p in params.parameters()) == count_params(cfg)
     assert {p.dtype for p in params.parameters()} == {torch.float32}
-    wq = params["layers"][0]["mixer"]["wq"]
+    wq = params["layers"][0]["mixer"]["wdq" if cfg.attention == "mla" else "wq"]
     assert float(wq.detach().abs().max()) <= 2.0 / math.sqrt(cfg.d_model)
     back = dict(model_params_from_numpy(cfg, reference_params(cfg, params),
                                         device="cpu").named_parameters())
