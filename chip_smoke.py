@@ -153,9 +153,10 @@ Phases (any failure exits non-zero and prints no result line):
     ``LM_DECODE_TOL`` on every row, in float32 (which must also route
     every row alike by itself) and in bf16; ``batch_chunk=4`` over 6 prompts, each chunk bit-equal
     to its rows alone; two sampled runs of one seed bit-equal and in the
-    vocabulary; the smoke configs of Phi-3.5-MoE, SmolLM-360M and
-    DeepSeek-V3 in float32 with greedy tokens equal to the CPU path's and
-    logits within ``LM_SMOKE_TOL``;
+    vocabulary; the smoke configs of Phi-3.5-MoE, SmolLM-360M,
+    DeepSeek-V3 and Jamba-1.5-Large (attention at layer 4 among Mamba
+    layers: KV and conv / SSM caches side by side) in float32 with greedy
+    tokens equal to the CPU path's and logits within ``LM_SMOKE_TOL``;
 14. DeepSeek-V3 serving: phase 13's weights released (the memory still
     allocated printed), then ``init_params`` of ``deepseek-v3-671b`` at its
     published widths (MLA with q_lora 1536 / kv_lora 512, 128 heads; 256
@@ -176,6 +177,28 @@ Phases (any failure exits non-zero and prints no result line):
     path's, batch ``DS_GATE_BATCH``, peak under 75 GB) within
     ``DS_DECODE_TOL`` under both paths in float32 and bf16 (float32 must
     also route every row alike by itself);
+15. Jamba-1.5-Large serving: phase 14's weights released (the memory still
+    allocated printed), then ``init_params`` of ``jamba-1.5-large-398b`` at
+    its published widths (d_model 8192; 64 heads, 8 KV heads of 128; Mamba
+    d_state 16, d_conv 4, expand 2, dt_rank 512, scan chunks of 128; 16
+    experts of width 24576, top-2; vocab 65536), cut to 3 of its 72 layers
+    (Mamba + dense MLP, Mamba + MoE, Mamba + dense MLP; 13,206,562,400
+    parameters, 52.83 GB of float32 weights; 4 layers would be 93.16 GB
+    and 5, the first to reach the attention layer, 96.18 GB), and phase
+    13's load through ``Engine.generate``.  Printed: parameters and GB,
+    prefill ms, decode ms a step, tokens/s, the profiler breakdown of a
+    prefill and a decode step and the selective scan's share of each one's
+    device time (the scan's calls caught and profiled again alone), peak
+    memory.  Gates: the norm kernel launched exactly (1 MoE layer x 33
+    forwards) times a generate and nothing else, short-wide at 16 x 8192,
+    within ``1e-5 |c|^2`` of ``norms_plain``; layer 0's Mamba mixer at real
+    activations on the card within ``JB_MIXER_TOL`` of the CPU path in
+    float32 (exact products), output and both states; decode through the
+    conv / SSM caches against one prefill of 160 positions (two scan
+    chunks, the second padded; no-drop capacity, routing forced to the
+    decode path's) within ``LM_DECODE_TOL`` in float32 (every row routed
+    alike by itself) and bf16; peak memory over the phase under
+    ``JB_PEAK_GB``;
 
 then one JSON ``kernels`` line (launches on each kernel's path, times,
 errors, bounds, library times) and the ``{"ok": true, "device": ...}``
@@ -342,8 +365,8 @@ LM_NODROP_CF = 8.0
 LM_DECODE_TOL = {"float32": 1e-3, "bfloat16": 0.1}
 #: smoke configs run on the card and on the CPU in float32 (TF32 off): the
 #: port's own CPU tests' tolerance against the reference
-LM_SMOKE_ARCHS, LM_SMOKE_TOL = (("phi3.5-moe-42b-a6.6b", "smollm-360m", "deepseek-v3-671b"),
-                                1e-4)
+LM_SMOKE_ARCHS, LM_SMOKE_TOL = (("phi3.5-moe-42b-a6.6b", "smollm-360m", "deepseek-v3-671b",
+                                 "jamba-1.5-large-398b"), 1e-4)
 # phase 14: DeepSeek-V3 at its published widths, cut to 4 of its 61 layers
 # (the 3 dense ones and the first MoE layer) with the MTP head: 15,797,366,784
 # parameters, 63.19 GB of float32 master weights (count_params; 5 layers
@@ -369,6 +392,22 @@ DS_DECODE_TOL = {"float32": 1e-3, "bfloat16": 0.1}
 #: on the card with every row routed alike by force, while by itself the
 #: absorbed path routes all 8 rows differently somewhere; 0.1 as above
 DS_ABSORB_TOL = {"float32": 1e-3, "bfloat16": 0.1}
+# phase 15: Jamba-1.5-Large at its published widths, cut to 3 of its 72
+# layers (Mamba + dense MLP, Mamba + MoE, Mamba + dense MLP): 13,206,562,400
+# parameters, 52.83 GB of float32 master weights (count_params).  4 layers
+# would be 93.16 GB, and 5, the first depth to reach the attention layer at
+# position 4, 96.18 GB: neither fits the card's 80 GB.  The largest
+# transients beside the weights: one expert tensor cast to bf16, 16 x 8192 x
+# 24576 x 2 B = 6.44 GB, and a prefill's scan, a few (8, 128, 16384, 16)
+# float32 tensors of 1.07 GB.  Phase 13's load; decode against one prefill
+# at phase 13's no-drop capacity (cf = E / top_k = 8 here too)
+JB_ARCH, JB_LAYERS, JB_PARAMS = "jamba-1.5-large-398b", 3, 13_206_562_400
+#: layer 0's Mamba mixer on the card against the CPU path, at the real
+#: activations of the first rows of the prompts, float32 with exact products:
+#: |card - CPU| <= tol (1 + |CPU|), the CPU tests' F32_RTOL / F32_ATOL
+JB_MIXER_ROWS, JB_MIXER_TOL = 2, 2e-5
+#: peak device memory over the whole phase
+JB_PEAK_GB = 78
 
 
 def fail(msg: str) -> None:
@@ -2530,12 +2569,13 @@ def lm_generate_timed(torch, cfg, params, prompts):
     return statistics.median(pre), steps, torch.cat(out, -1)
 
 
-def lm_profile(torch, cfg, params, prompts, steps: int = 3, phase: str = "phase 13") -> None:
+def lm_profile(torch, cfg, params, prompts, steps: int = 3, phase: str = "phase 13") -> dict:
     """Where a prefill and a decode step spend the device's time: one
     prefill and ``steps`` decode steps under ``torch.profiler``, each window
     ending in a synchronize.  Prints the device-busy share of each window's
     host time (kernels of one stream do not overlap) and its largest
-    kernels by device time."""
+    kernels by device time.  Returns the device-busy ms of a prefill and of
+    a decode step (None where the profiler saw no device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2555,6 +2595,7 @@ def lm_profile(torch, cfg, params, prompts, steps: int = 3, phase: str = "phase 
         for _ in range(steps):
             _, c = decode_step(cfg, NO_PARALLEL, params, c, tok)
 
+    busy_ms = {}
     for label, fn, calls in (("prefill", run_prefill, 1), ("decode step", run_decode, steps)):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -2568,6 +2609,7 @@ def lm_profile(torch, cfg, params, prompts, steps: int = 3, phase: str = "phase 
                        if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                       reverse=True)
         busy = sum(r[0] for r in rows)
+        busy_ms[label] = busy / calls if busy else None
         if busy == 0:
             say(f"{phase} profile, {label}: the profiler saw no device time (not measured)")
             continue
@@ -2576,6 +2618,7 @@ def lm_profile(torch, cfg, params, prompts, steps: int = 3, phase: str = "phase 
         say(f"{phase} profile, {label}: {host_ms / calls:.3f} ms on the host clock "
             f"(profiled), device busy {busy / calls:.3f} ms ({busy / host_ms:.1%}; "
             f"idle {1 - busy / host_ms:.1%}); per call: {top}")
+    return busy_ms
 
 
 def forced_weights(torch, m, scores, idx):
@@ -3163,6 +3206,212 @@ def phase_deepseek(torch, card: str) -> list:
     return [row]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: Jamba-1.5-Large serving (Mamba mixers, conv and SSM caches)
+# ---------------------------------------------------------------------------
+
+
+def scan_calls(torch, cfg, params, prompts) -> dict:
+    """The selective scan's arguments in one prefill of ``prompts`` and in
+    the decode step after it, caught by a spy: ``{"prefill": [...],
+    "decode step": [...]}``, one argument tuple per Mamba layer."""
+    from repro_torch.models import decode_step, init_cache, prefill
+    from repro_torch.models import mamba as mam
+    from repro_torch.parallel import NO_PARALLEL
+    caught = {"prefill": [], "decode step": []}
+    scan, into = mam.selective_scan, caught["prefill"]
+
+    def spy(*args):
+        into.append(args)
+        return scan(*args)
+
+    mam.selective_scan = spy
+    try:
+        logits, cache = prefill(cfg, NO_PARALLEL, params, {"tokens": prompts},
+                                init_cache(cfg, prompts.shape[0], LM_MAX_LEN, device="cuda"))
+        into = caught["decode step"]
+        decode_step(cfg, NO_PARALLEL, params, cache,
+                    logits[:, -1].argmax(-1)[:, None].to(torch.int32))
+    finally:
+        mam.selective_scan = scan
+    return caught
+
+
+def jamba_mixer_gate(torch, cfg, params, prompts) -> tuple[float, str]:
+    """Layer 0's Mamba mixer, float32 with exact products, at the real
+    activations of ``prompts`` (embedding, ``norm1``) on the card and on
+    the CPU from the same weights: the worst |card - CPU| / (1 + |CPU|)
+    over its output and both new states, and a summary."""
+    from repro_torch.models import mamba as mam
+    from repro_torch.models.layers import exact_products, norm_apply
+    from repro_torch.models.model import _embed_inputs
+    from repro_torch.parallel import NO_PARALLEL
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    blk = params["layers"][0]
+    p_cpu = {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+                 else {n: t.detach().cpu() for n, t in v.items()})
+             for k, v in blk["mixer"].items()}
+    with torch.no_grad(), exact_products():
+        h, _, _ = _embed_inputs(f32, NO_PARALLEL, params, {"tokens": prompts})
+        x = norm_apply(f32, blk["norm1"], h)
+        y, states = mam.mamba_apply(f32, NO_PARALLEL, blk["mixer"], x)
+        got = [t.cpu() for t in (y, *states)]
+        y_c, states_c = mam.mamba_apply(f32, NO_PARALLEL, p_cpu, x.cpu())
+    err = max(float(((g - w).abs() / (1 + w.abs())).max())
+              for g, w in zip(got, (y_c, *states_c), strict=True))
+    return err, (f"layer 0's Mamba mixer on {prompts.shape[0]} x {prompts.shape[1]} real "
+                 f"activations (float32): output and conv / SSM states within {err:.3g} "
+                 f"(1 + |CPU|) of the CPU path (gate {JB_MIXER_TOL:g}), |y| up to "
+                 f"{float(y_c.abs().max()):.3f}")
+
+
+def phase_jamba(torch, card: str) -> list:
+    """Phase 15: ``init_params`` -> ``Engine.generate`` for Jamba-1.5-Large
+    at full width (3 of 72 layers, all Mamba, the middle one MoE) on the
+    card, the norm kernel on its 16 x 8192 router table, layer 0's mixer
+    against the CPU path, decode against one prefill."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import nvcc
+    from repro_torch.kernels.distance import (NORM_SHORT_WIDE, norm_variant, norms_cuda,
+                                              norms_plain)
+    from repro_torch.models import count_params, init_params
+    from repro_torch.models import mamba as mam
+    from repro_torch.serving import Engine
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 15: {torch.cuda.memory_allocated() / 1e9:.2f} GB allocated after phase "
+        "14's weights were released")
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(JB_ARCH), num_layers=JB_LAYERS)
+    n_moe = sum(spec.moe for spec in cfg.layer_specs())
+    t0 = time.perf_counter()
+    params = init_params(torch.Generator(device="cuda").manual_seed(SEED), cfg,
+                         device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    if not n_params == count_params(cfg) == JB_PARAMS:
+        fail(f"phase 15: {n_params} parameters, count_params says {count_params(cfg)}, "
+             f"the cut's count {JB_PARAMS}")
+    say(f"phase 15 {cfg.name} at full width, {JB_LAYERS} of 72 layers "
+        f"({[spec.mixer + (' + MoE' if spec.moe else '') for spec in cfg.layer_specs()]}): "
+        f"{n_params:,} parameters ({n_params * 4 / 1e9:.2f} GB f32), init {init_s:.2f} s")
+    prompts = torch.as_tensor(np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT)), dtype=torch.int32, device="cuda")
+    eng = Engine(cfg, params, max_len=LM_MAX_LEN)
+    eng.generate(prompts[:1, :8], 1)  # warm-up
+
+    # ---- (a) the main path, its launches counted ----------------------------
+    nvcc.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    greedy = eng.generate(prompts, LM_NEW)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = nvcc.launch_counts()
+    want = n_moe * (1 + LM_NEW)
+    if launches != {"norm": want}:
+        fail(f"phase 15: Engine.generate launched {launches}; the norm kernel should run "
+             f"{want} times ({n_moe} MoE layer x {1 + LM_NEW} forwards) and nothing else")
+    if greedy.shape != (LM_BATCH, LM_NEW) or greedy.dtype != torch.int32 or not bool(
+            ((greedy >= 0) & (greedy < cfg.vocab_size)).all()):
+        fail(f"phase 15: greedy tokens {tuple(greedy.shape)} {greedy.dtype} out of range")
+    prefill_ms, steps, timed = lm_generate_timed(torch, cfg, params, prompts)
+    if not torch.equal(timed, greedy):
+        fail("phase 15: the timed loop's greedy tokens differ from Engine.generate's")
+    step_ms = statistics.median(steps)
+    peak = torch.cuda.max_memory_allocated()
+    say(f"phase 15 Engine.generate batch {LM_BATCH} x prompt {LM_PROMPT} + {LM_NEW} new: "
+        f"{gen_s:.3f} s; prefill {prefill_ms:.3f} ms (median of {TIMED_REPS}), decode "
+        f"{step_ms:.3f} ms a step (median of {LM_NEW}; min {min(steps):.3f}, max "
+        f"{max(steps):.3f}), {LM_BATCH / step_ms * 1e3:.1f} tokens/s; peak memory "
+        f"{peak / 1e9:.2f} GB; norm kernel launches {launches['norm']} ({n_moe} MoE layer "
+        f"x {1 + LM_NEW} forwards); {card}")
+    busy = lm_profile(torch, cfg, params, prompts, phase="phase 15")
+    for label, calls in scan_calls(torch, cfg, params, prompts).items():
+        def run(calls=calls):
+            with torch.no_grad():
+                for args in calls:
+                    mam.selective_scan(*args)
+        us, _ = profiled_us([run])
+        share = ("not measured" if us is None or busy.get(label) is None
+                 else f"{us / 1e3 / busy[label]:.1%} of its {busy[label]:.3f} ms busy")
+        say(f"phase 15 profile, {label}: the selective scan of its {len(calls)} Mamba "
+            f"layers {'not measured' if us is None else f'{us / 1e3:.3f} ms'} of device "
+            f"time ({share}); {card}")
+
+    # ---- (b) gates ----------------------------------------------------------
+    w = params["layers"][1]["ffn"]["router"].detach()
+    e, d = w.shape
+    if norm_variant(e, d) != NORM_SHORT_WIDE:
+        fail(f"phase 15: norm_variant{(e, d)} is not the short-wide variant")
+    got, ref = norms_cuda(w), norms_plain(w)
+    norm_err, norm_rel = score_error(got, ref, ref), scaled_error(got, ref, ref)
+    if norm_rel > SCORE_RTOL:
+        fail(f"phase 15: the router's norms {norm_rel:.3g} |c|^2 from norms_plain")
+    r = norm_checked(torch, "phase 15 norm at the Jamba-1.5-Large router table (the model's)",
+                     w)
+    plain_ms, _ = event_ms(lambda: norms_plain(w))
+    sets = [(a, torch.empty((1, e), dtype=torch.float32, device="cuda"))
+            for a in cold_copies(w)]
+    alone_ms = device_ms("rayflex_norm", [norm_args(a, o, NORM_SHORT_WIDE) for a, o in sets])
+    del sets
+    mixer_err, mixer_line = jamba_mixer_gate(torch, cfg, params, prompts[:JB_MIXER_ROWS])
+    say(f"phase 15 gates: the router's norms through norms_cuda (short-wide) within "
+        f"{norm_rel:.3g} |c|^2 of norms_plain (gate {SCORE_RTOL:g}); {mixer_line}")
+    if not mixer_err <= JB_MIXER_TOL:
+        fail(f"phase 15: layer 0's Mamba mixer {mixer_err:.3g} from the CPU path "
+             f"(gate {JB_MIXER_TOL:g})")
+
+    # decode through the conv / SSM caches against one prefill of the whole
+    # sequence (160 positions: two scan chunks, the second padded), every row
+    # compared with the prefill's routing forced to the decode path's
+    for dtype in ("float32", "bfloat16"):
+        nodrop = dataclasses.replace(
+            cfg, compute_dtype=dtype,
+            moe=dataclasses.replace(cfg.moe, capacity_factor=LM_NODROP_CF))
+        free, forced, scale, flipped = lm_decode_vs_prefill(torch, nodrop, params, prompts)
+        tol = LM_DECODE_TOL[dtype]
+        worst = float(forced.max())
+        say(f"phase 15 decode vs one prefill of {LM_PROMPT + LM_NEW} tokens ({dtype}, "
+            f"capacity_factor {LM_NODROP_CF:g}: no drops), last-step logits at |logits| up "
+            f"to {scale:.3f}: routing forced to the decode path's, max |err| per row "
+            f"{[round(float(v), 6) for v in forced]}, worst {worst:.6g} (gate {tol:g}); "
+            f"the prefill routing by itself, {int(flipped.sum())} of {LM_BATCH} rows "
+            f"routed differently somewhere, max |err| per row "
+            f"{[round(float(v), 6) for v in free]}")
+        if dtype == "float32" and bool(flipped.any()):
+            fail(f"phase 15: float32 decode and prefill routed {int(flipped.sum())} of "
+                 f"{LM_BATCH} rows differently")
+        if not worst <= tol:
+            fail(f"phase 15: {dtype} decode logits {worst:.6g} from the full prefill's "
+                 f"with the same routing (gate {tol:g})")
+    peak = torch.cuda.max_memory_allocated()
+    say(f"phase 15 peak memory over the phase {peak / 1e9:.2f} GB (gate {JB_PEAK_GB}); "
+        f"{card}")
+    if peak > JB_PEAK_GB * 1e9:
+        fail(f"phase 15: peak memory {peak / 1e9:.2f} GB")
+    del params, w, got, ref, eng, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"phase 15 seconds: {time.perf_counter() - t_phase:.1f}")
+
+    # the norm kernel at the model's router, in the model (row 5d)
+    dev = r["norms_cuda"]["device_us"]
+    bound = bound_ms(4.0 * (e * d + e), 2.0 * e * d)
+    name = "norm (Jamba-1.5-Large router)"
+    row = kernel_row(name, "distance.cu", "src/repro/kernels/distance.py:65",
+                     {name: launches["norm"]}, alone_ms if dev is None else dev / 1e3,
+                     plain_ms, norm_err, bound, r["vector_norm"]["window_ms"],
+                     wrapper_ms=r["norms_cuda"]["window_ms"])
+    row["alone_ms"] = alone_ms
+    row["host_us"] = r["norms_cuda"]["host_us"]
+    return [row]
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir() or not GOLDEN.is_dir():
         fail(f"{SRC / 'repro_torch'} or {GOLDEN} missing: run from a "
@@ -3230,6 +3479,7 @@ def main() -> None:
     del stage_jobs, vectors
     kernels += phase_lm(torch, card)
     kernels += phase_deepseek(torch, card)
+    kernels += phase_jamba(torch, card)
 
     say(card)
     say(json.dumps({"kernels": kernels}))

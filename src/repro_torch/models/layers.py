@@ -174,9 +174,16 @@ def mlp_init(rng, cfg: ModelConfig, d_ff=None) -> nn.ParameterDict:
     return p
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference computes it: x * (1 / (1 + exp(-x))),
+    each op rounded to ``x``'s dtype (in bf16, ``F.silu`` rounds once and
+    differs from it in the last bit)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def _act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     if cfg.act == "silu":
-        return F.silu(x)
+        return silu(x)
     if cfg.act == "gelu":  # jax.nn.gelu's default is the tanh form
         return F.gelu(x, approximate="tanh")
     if cfg.act == "relu_sq":

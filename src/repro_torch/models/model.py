@@ -1,7 +1,9 @@
 """Public model API: init / prefill / decode_step / init_cache.
 
 The port serves the language-model families whose blocks are GQA or MLA
-attention with a dense or MoE FFN (``dense``, ``moe``).  Parameters are an
+attention or Mamba with a dense or MoE FFN (``dense``, ``moe`` and the
+``hybrid`` Jamba, whose Mamba blocks cache a ``conv`` and an ``ssm``
+state).  Parameters are an
 ``nn.ModuleDict``: ``embed`` and ``final_norm`` (``nn.ParameterDict``),
 ``layers``, one ``nn.ModuleDict`` block per layer (``models.transformer``),
 and, where ``mtp_depth > 0``, ``mtp``: the multi-token-prediction head,
@@ -12,7 +14,8 @@ and return the cache with its new length, so a decode step reads nothing
 back from the device.
 
 Still to port (``ROADMAP.md``, queue 1): the ``audio`` and ``vlm``
-families, the Mamba and RWKV mixers, and ``train_loss`` with the MTP loss.
+families, the RWKV mixers (the ``ssm`` family raises from
+``models/rwkv.py``), and ``train_loss`` with the MTP loss.
 """
 from __future__ import annotations
 

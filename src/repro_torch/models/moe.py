@@ -23,7 +23,7 @@ from torch import nn
 from ..core.knn import key_value, order_key, topk_keys
 from ..core.session import VectorIndex
 from .config import ModelConfig, MoEConfig
-from .layers import cast, dense_init
+from .layers import cast, dense_init, silu
 
 
 def moe_init(rng, cfg: ModelConfig) -> nn.ParameterDict:
@@ -89,7 +89,7 @@ def _expert_ffn(cfg: ModelConfig, wi, wg, wo, xs):
     dt = xs.dtype
     h = torch.bmm(xs, cast(wi, dt))
     g = torch.bmm(xs, cast(wg, dt))
-    h = F.silu(g) * h
+    h = silu(g) * h
     return torch.bmm(h, cast(wo, dt))
 
 
@@ -176,7 +176,7 @@ def moe_apply(cfg: ModelConfig, ctx, p, x):
         dt = x_flat.dtype
         h = x_flat @ cast(p["shared_wi"], dt)
         g = x_flat @ cast(p["shared_wg"], dt)
-        y = y + (F.silu(g) * h) @ cast(p["shared_wo"], dt)
+        y = y + (silu(g) * h) @ cast(p["shared_wo"], dt)
     return y.reshape(b, t, d).to(x.dtype), aux
 
 

@@ -1,15 +1,17 @@
 """Block assembly and the layer stack.
 
-A *block* is one layer: pre-norm mixer (GQA or MLA attention; Mamba and
-RWKV are still to port) plus pre-norm FFN (MLP or MoE).  Each block's parameters
+A *block* is one layer: pre-norm mixer (GQA or MLA attention, or Mamba;
+RWKV is still to port) plus pre-norm FFN (MLP or MoE).  Each block's parameters
 are an ``nn.ModuleDict`` (``norm1``, ``mixer``, ``norm2``, ``ffn``: the
 reference's per-block dict), one per layer in an ``nn.ModuleList``; the
 stack runs them in layer order, which is the order of the reference's
 segments (``config.derive_segments``).
 
 The decode cache keeps the reference's layout: per segment, per position
-of its pattern, a dict of buffers stacked over the segment's repeats.
-Each layer reads and writes its own slice of those buffers in place.
+of its pattern, a dict of buffers stacked over the segment's repeats
+(``k`` / ``v``, ``ckv`` / ``krope`` for MLA, ``conv`` / ``ssm`` for
+Mamba).  Each layer reads and writes its own slice of those buffers in
+place.
 
 Three modes share the block code:
   'train'   -- full sequence, no cache.
@@ -105,7 +107,14 @@ def block_apply(cfg: ModelConfig, ctx, spec: LayerSpec, p, h, positions,
     x = norm_apply(cfg, p["norm1"], h)
 
     if spec.mixer == "mamba":
-        y, _ = mam.mamba_apply(cfg, ctx, p["mixer"], x)
+        if mode == "decode":
+            y, conv_s, ssm_s = mam.mamba_decode(cfg, ctx, p["mixer"], x, cache["conv"],
+                                                cache["ssm"])
+        else:
+            y, (conv_s, ssm_s) = mam.mamba_apply(cfg, ctx, p["mixer"], x)
+        if mode != "train":
+            cache["conv"].copy_(conv_s)
+            cache["ssm"].copy_(ssm_s)
     elif spec.mixer == "rwkv":
         y, _ = rk.rwkv_time_apply(cfg, ctx, p["mixer"], x)
     elif cfg.attention == "mla":

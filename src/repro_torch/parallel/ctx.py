@@ -15,6 +15,9 @@ from typing import Any, Optional
 @dataclasses.dataclass(frozen=True)
 class ParallelCtx:
     mesh: Optional[Any] = None
+    #: the mesh axis that tensor parallelism shards over (the reference's
+    #: name); the helpers take it and, on one device, ignore it
+    model_axis: Optional[str] = "model"
 
     def __post_init__(self):
         if self.mesh is not None:
@@ -44,6 +47,12 @@ class ParallelCtx:
 
     def kv_cache(self, x):
         """(batch, s_max, kv_heads, head_dim) KV cache."""
+        return x
+
+    def act_recurrent(self, x, axis=None):
+        """(batch, seq, ...) operand of a time recurrence (the Mamba scan):
+        the sequence axis gathered, the dim after it on ``axis`` (the mixer
+        passes ``model_axis`` for d_inner)."""
         return x
 
 

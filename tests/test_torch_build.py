@@ -27,6 +27,7 @@ from repro_torch.core.build import BuildResult, build, builders, register_builde
 from repro_torch.core.build.lbvh import morton3d
 from repro_torch.core.build.quality import clustered_soup
 from repro_torch.core.types import Triangle
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 GOLDEN_SCENES = ("tetra", "sheet", "cluster")

@@ -47,6 +47,7 @@ from repro_torch.core.datapath import boxsort, ray_box_test
 from repro_torch.core.types import Box, Triangle
 from repro_torch.core.wavefront import trace_wavefront
 from repro_torch.kernels.traverse import pack_bvh, pack_bvh_rows, traverse_packed
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_trace import GOLDEN, GOLDEN_SCENES, _assert_record, _assert_same
 
 CODECS = (("fp32", "fp32"), ("bf16", "fp32"), ("bf16", "compressed"))

@@ -746,6 +746,78 @@ def test_mla_smoke_model_on_the_card_matches_the_cpu(cuda, absorb):
     assert float((logits[1] - logits[0]).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_apply_on_the_card_matches_the_cpu(cuda, dtype):
+    """Jamba's smoke mixer over 37 steps (scan chunks of 8, the last
+    padded) from nonzero conv and SSM states, on the card and the CPU from
+    the same weights and inputs: the output and both new states within
+    2e-5 (float32, TF32 off: summation order) or, in bf16, 2^-6 of the
+    largest value (a bf16 product rounds its f32 sum, whose order differs)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import mamba as mam
+    from repro_torch.models.layers import exact_products
+    from repro_torch.parallel import NO_PARALLEL
+    cfg = dataclasses.replace(get_smoke("jamba-1.5-large-398b"),
+                              compute_dtype=str(dtype).split(".")[1])
+    p = mam.mamba_init(torch.Generator().manual_seed(27), cfg)
+    conv_s, ssm_s = mam.mamba_state_shapes(cfg, 3)
+    rng = np.random.default_rng(27)
+    x, conv, ssm = (torch.as_tensor(rng.normal(size=s).astype(np.float32))
+                    for s in ((3, 37, cfg.d_model), conv_s, ssm_s))
+    args = (x.to(dtype), conv.to(dtype), ssm)
+    with torch.no_grad():
+        want = mam.mamba_apply(cfg, NO_PARALLEL, p, args[0], ssm_state=args[2],
+                               conv_state=args[1])
+        pc = {k: v.to(cuda) for k, v in p.items()}
+        with exact_products():
+            got = mam.mamba_apply(cfg, NO_PARALLEL, pc, args[0].to(cuda),
+                                  ssm_state=args[2].to(cuda), conv_state=args[1].to(cuda))
+    for name, g, w in zip(("y", "conv state", "ssm state"), (got[0], *got[1]),
+                          (want[0], *want[1]), strict=True):
+        assert g.dtype == w.dtype, name
+        g, w = g.cpu().float(), w.float()
+        tol = 2e-5 * (1 + w.abs()) if dtype == torch.float32 else 2**-6 * w.abs().max()
+        assert bool(((g - w).abs() <= tol).all()), name
+
+
+def test_jamba_smoke_model_on_the_card_matches_the_cpu(cuda):
+    """Jamba's smoke config (Mamba, attention at layer 4, MoE at the odd
+    layers) in float32 on the card and the CPU from the same weights:
+    greedy tokens equal, every step's logits within 1e-4 (TF32 off), and
+    the norm kernel launched once per MoE layer per forward, nothing
+    else."""
+    import copy
+    import dataclasses
+
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import decode_step, init_cache, init_params, prefill
+    from repro_torch.parallel import NO_PARALLEL
+    from repro_torch.serving import Engine
+    cfg = dataclasses.replace(get_smoke("jamba-1.5-large-398b"), compute_dtype="float32")
+    n_moe = sum(spec.moe for spec in cfg.layer_specs())
+    cpu_params = init_params(27, cfg, device="cpu")
+    gpu_params = copy.deepcopy(cpu_params).to(cuda)
+    toks = torch.as_tensor(np.random.default_rng(27).integers(0, cfg.vocab_size, (3, 20)),
+                           dtype=torch.int32)
+    want = Engine(cfg, cpu_params, max_len=32).generate(toks, 8)
+    nvcc.reset_launches()
+    got = Engine(cfg, gpu_params, max_len=32).generate(toks.to(cuda), 8)
+    assert nvcc.launch_counts() == {"norm": n_moe * 9}
+    assert torch.equal(got.cpu(), want)
+    logits = []
+    for params, dev in ((cpu_params, torch.device("cpu")), (gpu_params, cuda)):
+        out, cache = prefill(cfg, NO_PARALLEL, params, {"tokens": toks.to(dev)},
+                             init_cache(cfg, 3, 32, device=dev))
+        steps = [out.cpu()]
+        for i in range(8):
+            out, cache = decode_step(cfg, NO_PARALLEL, params, cache, want[:, i:i + 1].to(dev))
+            steps.append(out.cpu())
+        logits.append(torch.cat(steps, 1))
+    assert float((logits[1] - logits[0]).abs().max()) <= 1e-4
+
+
 def test_check_cuda_holds_each_operand_to_the_launch_device(cuda):
     """On one card too: an operand is refused when the launch's device is
     another, and passes on its own device."""

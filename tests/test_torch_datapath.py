@@ -41,6 +41,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.raybox import raybox
 from repro_torch.kernels.raytri import raytri
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 SIZES = [1, 128, 300]  # one job, an exact lane multiple, a ragged tail

@@ -27,6 +27,7 @@ import torch
 from repro.kernels.distance import distance_pallas
 from repro_torch.kernels.distance import (K_BLOCK, MODES, SPLIT_LIMIT, distance_3xtf32,
                                           distance_plain, split_flags, split_tf32)
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 
 RTOL = 1e-5
 MODEL_RTOL = 2e-6

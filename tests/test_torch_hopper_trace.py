@@ -24,6 +24,7 @@ from repro_torch.core.bvh import level_offset, num_nodes
 from repro_torch.core.wavefront import trace_wavefront
 from repro_torch.kernels.traverse import (SLOT_INDEX, pack_bvh, pack_bvh_rows, traverse_packed,
                                           unpack_bvh)
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_trace import (_assert_record, _assert_same, _carried, _np,
                               _random_scene)
 

@@ -30,6 +30,7 @@ from repro_torch.core import knn as tk
 from repro_torch.kernels import ops
 from repro_torch.kernels.distance import distance_cuda, distance_plain, norms_plain
 from repro_torch.kernels.ref import angular_ref, euclidean_direct_ref, euclidean_ref
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 
 jk = importlib.import_module("repro.core.knn")
 

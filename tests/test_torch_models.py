@@ -49,7 +49,7 @@ from repro_torch.parallel import ParallelCtx
 F32_RTOL, F32_ATOL = 2e-5, 2e-5
 #: the families the port serves; the rest raise until their slices
 SERVED = ("smollm-360m", "granite-34b", "chatglm3-6b", "stablelm-1.6b",
-          "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b")
+          "phi3.5-moe-42b-a6.6b", "deepseek-v3-671b", "jamba-1.5-large-398b")
 
 
 def _shared_state():
@@ -173,7 +173,9 @@ def test_init_params_counts_and_converts_back(arch):
     params = init_params(gen(), cfg, device="cpu")
     assert sum(p.numel() for p in params.parameters()) == count_params(cfg)
     assert {p.dtype for p in params.parameters()} == {torch.float32}
-    wq = params["layers"][0]["mixer"]["wdq" if cfg.attention == "mla" else "wq"]
+    attn = next(blk for blk, spec in zip(params["layers"], cfg.layer_specs())
+                if spec.mixer == "attn")
+    wq = attn["mixer"]["wdq" if cfg.attention == "mla" else "wq"]
     assert float(wq.detach().abs().max()) <= 2.0 / math.sqrt(cfg.d_model)
     back = dict(model_params_from_numpy(cfg, reference_params(cfg, params),
                                         device="cpu").named_parameters())

@@ -45,6 +45,7 @@ from repro_torch.core.build.quality import clustered_soup
 from repro_torch.core.datapath import point_box_test
 from repro_torch.core.types import Box
 from repro_torch.kernels.traverse import neighbor_fused, neighbor_packed, pack_point_bvh
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 
 jn = importlib.import_module("repro.core.neighbor")
 

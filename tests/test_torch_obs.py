@@ -35,6 +35,7 @@ from repro_torch.api import PointCloudScene, QueryEngine, Scene, VectorIndex, ma
 from repro_torch.kernels import nvcc
 from repro_torch.obs.metrics import HIST_BINS, MetricsRegistry
 from repro_torch.obs.trace import TraceBuffer, annotate
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 @pytest.fixture(autouse=True)

@@ -34,6 +34,7 @@ from repro_torch.api import PointCloudScene, Scene, make_ray
 from repro_torch.core.build import build, refit, refit_points, tree_stats
 from repro_torch.core.build.points import build_point_bvh
 from repro_torch.core.types import Triangle
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_trace import _assert_record
 
 BVH_FIELDS = ("node_lo", "node_hi", "leaf_tri", "leaf_perm")

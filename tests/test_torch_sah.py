@@ -30,6 +30,7 @@ from repro_torch.core.build.points import build_point_bvh
 from repro_torch.core.build.sah import BINS, sah_leaf_perm
 from repro_torch.core.bvh import DatapathConfig
 from repro_torch.core.types import Box, Triangle, aabb_of_triangles
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 
 FIELDS = ("node_lo", "node_hi", "leaf_tri", "leaf_perm")
 CODECS = (("fp32", "fp32"), ("bf16", "fp32"), ("bf16", "compressed"))

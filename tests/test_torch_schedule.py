@@ -18,6 +18,7 @@ from repro_torch.core.build.lbvh import _U32, _expand_bits, morton3d
 from repro_torch.core.neighbor import neighbor_wavefront, point_queries, point_sq_norms
 from repro_torch.kernels.traverse import (NEIGHBOR_CAPACITIES, neighbor_variant,
                                           pack_point_bvh, query_order)
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 
 
 def _clustered(n, seed):

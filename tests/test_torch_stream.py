@@ -39,6 +39,7 @@ from repro_torch.core.stream import make_jobs, unified_stream
 from repro_torch.core.types import (OP_ANGULAR, OP_EUCLIDEAN, OP_QUADBOX,
                                     OP_TRIANGLE, DatapathState,
                                     init_datapath_state)
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 
 EXACT = ("opcode", "box_index", "is_intersect", "tmin", "triangle_hit",
          "reset_accum")

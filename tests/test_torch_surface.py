@@ -28,6 +28,7 @@ from repro_torch.core import HitRecord, occlusion_test, trace_ray, trace_rays
 from repro_torch.core.bvh import DatapathConfig
 from repro_torch.core.dispatch import available_devices, resolve_shards
 from repro_torch.core.wavefront import trace_wavefront
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 from test_torch_trace import _assert_record, _assert_same, _carried, _random_scene
 
 

@@ -41,6 +41,7 @@ from repro_torch.kernels.ops import ray_box_kernel
 from repro_torch.kernels.traverse import (pack_bvh, pack_bvh_rows, pack_rays,
                                           traverse_fused, traverse_packed,
                                           unpack_bvh, unpack_rays)
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden")
 EXACT = ("tri_index", "hit", "quadbox_jobs", "triangle_jobs", "stack_overflow",

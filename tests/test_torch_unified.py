@@ -42,6 +42,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.common import LANES, N_OUTPUT_ROWS, ROW_VEC_A, ROW_VEC_B
 from repro_torch.kernels.unified import unified, unified_plain
+from test_torch_models import one_torch_thread  # noqa: F401  (autouse fixture)
 
 T = 12  # beats of every stream here
 RTOL_TRI, ATOL_TRI = 1e-4, 1e-4  # the reference's rule for its unified kernel
